@@ -1,0 +1,1170 @@
+"""The dataplane execution backend for the round-program IR.
+
+:class:`DataplaneExecutor` lowers every op of a compiled binary
+:class:`~repro_torch.mpc.program.RoundProgram` onto the torch data plane —
+one lowering rule per :class:`~repro_torch.mpc.program.RoundOp`, dispatched
+over ``program.ops``: capacity-padded hash exchanges and grid routes among p
+machines held as a leading tensor axis on one device, plus the
+``merge_join_counts`` / ``merge_join_pairs`` / ``hash_partition_pack``
+kernels.  Stages with isolated attributes run the Lemma 3.1 cartesian grid
+composed with the Lemma 3.3 HyperCube (the Lemma 3.2 cell mapping lives in
+:class:`~repro_torch.mpc.program.StageGeometry`).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from collections import OrderedDict, defaultdict
+from dataclasses import dataclass, field
+from functools import partial
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.query import Attr
+from ..core.taxonomy import heavy_masks, residual_relations
+from .faults import DeadlineExceededError, RetryExhaustedError
+from .program import (
+    BroadcastSizes,
+    GridRoute,
+    HashPartition,
+    LocalJoin,
+    ProgramStage,
+    RoundProgram,
+    RouteResidual,
+    RunConfig,
+    Scatter,
+    SemiJoin,
+    StageGeometry,
+    stage_geometry,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another; raises when CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
+
+
+def to_host(x) -> np.ndarray:
+    """Tensor (any device) or array → numpy."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@dataclass
+class DataplaneJoinResult:
+    """Result of running a program on the data plane.  ``rows`` is the full
+    exactly-once result multiset (over sorted(attset)) as int64.
+
+    ``dispatches`` counts bucket calls (one per (op, bucket, attempt)) and
+    ``bucket_stage_counts`` maps each op round to the per-dispatch batch
+    sizes.  ``jit_cache_hits``/``jit_cache_misses`` and the ``compile`` phase
+    read 0: nothing is traced or compiled ahead of a dispatch."""
+
+    p: int
+    count: int
+    rows: Optional[np.ndarray]
+    per_h_counts: Dict[Tuple[Attr, ...], int]
+    retries: int = 0    # capacity-doubling retries triggered by overflow
+    # one entry per retry: ((H, η), op round name, "slot" | "out" | "slot+out")
+    retry_log: List[Tuple[Tuple, str, str]] = field(default_factory=list)
+    dispatches: int = 0
+    jit_cache_hits: int = 0
+    jit_cache_misses: int = 0
+    #: learned-caps store outcomes for this run: a caps hit means a work item
+    #: started at the capacities a previous run converged to.
+    caps_hits: int = 0
+    caps_misses: int = 0
+    caps_evictions: int = 0
+    bucket_stage_counts: Dict[str, List[int]] = field(default_factory=dict)
+    #: coarse per-phase wall time (µs) across the whole run: "host_prep"
+    #: (host stacking of a round's buckets), "compile" (always 0), "launch"
+    #: (host→device copies + enqueueing the bucket's kernels; asynchronous on
+    #: the card), "sync" (the deferred device→host readback per bucket —
+    #: where kernel time surfaces on the host clock).
+    phase_us: Dict[str, float] = field(default_factory=dict)
+    #: per-round wall time (µs), keyed by op round name — count rounds appear
+    #: under "<round>/count".
+    round_us: Dict[str, float] = field(default_factory=dict)
+
+
+class DataplaneUnsupported(NotImplementedError):
+    """The program contains an op type with no dataplane lowering rule."""
+
+
+def _salt(*key, attempt: int = 0) -> int:
+    """Stable 31-bit salt for the routing hashes (shared randomness: every
+    host derives the same salt from the stage key alone).  ``attempt`` threads
+    the overflow-retry count into the salt so a capacity-doubling retry also
+    re-randomizes the routing."""
+    h = hashlib.blake2b(repr((key, attempt)).encode(), digest_size=8).digest()
+    return int.from_bytes(h, "little") % (1 << 31)
+
+
+def _pow2(n: int) -> int:
+    """Round a capacity up to a power of two (≥ 16)."""
+    return 1 << max(4, int(n - 1).bit_length() if n > 1 else 0)
+
+
+def _quant(n: int) -> int:
+    """Round an *exactly counted* capacity up onto the {2^k, 3·2^(k-1)} grid
+    (≥ 16): ≤ 33% padding, and doubling a grid value stays on the grid."""
+    p2 = _pow2(n)
+    if p2 >= 32 and 3 * (p2 // 4) >= n:
+        return 3 * (p2 // 4)
+    return p2
+
+
+def _pack_radices(a_blocks, b_blocks, dup_pairs) -> Optional[np.ndarray]:
+    """Host-side eligibility check for packed int32 composite join keys.
+
+    When every key column (cell, dup-attr...) is non-negative and the
+    mixed-radix product (max_cell + 1) · Π (max_dup_i + 1) fits int32, the
+    tuple packs collision-free into one int32 word.  Returns the per-dup-column
+    radices, or None for the ranked fallback.  Padding rows are zeros, so
+    block-level min/max are exact bounds for the valid prefixes."""
+    if not dup_pairs:
+        return None
+    cols_a = [0] + [ca for ca, _ in dup_pairs]
+    cols_b = [0] + [cb for _, cb in dup_pairs]
+    lim = np.iinfo(np.int32).max
+    space = 1
+    rads = []
+    for i, (ca, cb) in enumerate(zip(cols_a, cols_b)):
+        av = np.asarray(a_blocks)[:, :, ca]
+        bv = np.asarray(b_blocks)[:, :, cb]
+        if int(np.min(av, initial=0)) < 0 or int(np.min(bv, initial=0)) < 0:
+            return None
+        hi = int(max(np.max(av, initial=0), np.max(bv, initial=0))) + 1
+        if i == 0:
+            space = hi
+        else:
+            rads.append(hi)
+            space *= hi
+        if space > lim:
+            return None
+    return np.asarray(rads, dtype=np.int32)
+
+
+@dataclass
+class BatchRunStats:
+    """Scheduler-level counters of one (possibly multi-program) executor run,
+    once per batch (the per-query results carry them too)."""
+
+    queries: int = 1
+    dispatches: int = 0
+    jit_cache_hits: int = 0
+    jit_cache_misses: int = 0
+    retries: int = 0
+    retry_log: List[Tuple[Tuple, str, str]] = field(default_factory=list)
+    caps_hits: int = 0
+    caps_misses: int = 0
+    caps_evictions: int = 0
+    caps_quarantined: int = 0
+    bucket_stage_counts: Dict[str, List[int]] = field(default_factory=dict)
+    phase_us: Dict[str, float] = field(default_factory=dict)
+    round_us: Dict[str, float] = field(default_factory=dict)
+
+
+@dataclass
+class _StageState:
+    """Host-resident state of one (H, η) stage as it flows through the ops.
+
+    ``skip_count`` mirrors the simulator's geo.skip rule: a stage whose
+    isolated R''_X is empty never reaches LocalJoin and contributes *no*
+    per-H count entry; every other stage contributes one (possibly 0).
+    ``skey`` stays query-unqualified so a stage's routing salts (and result
+    bytes) do not depend on which other programs share the run."""
+
+    stage: ProgramStage
+    skey: Tuple
+    program: Optional[RoundProgram] = None
+    qi: int = 0
+    light: Optional[List] = None          # [(scheme, blocks, counts, n_rows)]
+    unary: Optional[Dict[Attr, List]] = None   # x -> [(vals, counts, n)] staged
+    host_piece_n: Optional[Dict[Attr, int]] = None  # |R''_X| (host cross-check)
+    pieces: Dict[Attr, Tuple] = field(default_factory=dict)   # x -> (vals, counts)
+    piece_salt: Dict[Attr, int] = field(default_factory=dict)
+    piece_n: Dict[Attr, int] = field(default_factory=dict)
+    geo: Optional[StageGeometry] = None
+    routed: Optional[List] = None    # [(scheme incl. cell col, blocks, counts, n)]
+    parts: Optional[List] = None     # LocalJoin chain worklist
+    n_out: int = 0
+    rows: Optional[np.ndarray] = None
+    empty: bool = False
+    skip_count: bool = False
+
+
+@dataclass
+class _WorkItem:
+    """One schedulable unit of an op — a (stage, fragment) pair.
+
+    ``key`` is the static bucket signature (op kind, route spec, input block
+    shapes); items sharing (key, caps) ride one dispatch.  ``group`` is the
+    retry unit: a *slot* overflow re-randomizes the routing of every member
+    at the next ``attempt``; an *out*-only overflow re-runs just the tripped
+    members with a grown output buffer and the salts untouched, so row order
+    never depends on capacity history."""
+
+    state: _StageState
+    key: Tuple
+    caps: Dict[str, int]
+    payload: Dict
+    group: Tuple
+    attempt: int = 0
+    retries: int = 0
+    result: object = None
+
+
+class DataplaneExecutor:
+    """Runs compiled binary :class:`RoundProgram`\\ s among ``p`` machines
+    held on one device.
+
+      Scatter          host no-op (inputs are host-resident)
+      RouteResidual    host carves Q'(η) per stage and blockifies the padded
+                       residual blocks evenly onto the machines
+      HashPartition    `batched_sharded_intersect`: unary residuals exchanged
+                       by hash(value) and intersected into R''_X(η)
+      SemiJoin         `batched_sharded_semijoin`: the light edges' X (phase
+                       x / fused-route) or Y (phase y / fused-filter) column
+                       filtered against the co-located pieces
+      BroadcastSizes   piece counts (already on the host) → `stage_geometry`
+      GridRoute        `batched_sharded_grid_route`: isolated pieces to their
+                       CP cells, light residents to their HyperCube shares,
+                       every copy tagged with its Lemma 3.2 virtual cell
+      LocalJoin        a chain of communication-free colocated joins keyed on
+                       the cell column
+
+    Every call is *stage-batched*: work items with the same static signature
+    and capacities form a geometry bucket whose inputs are stacked along a
+    leading stage axis and run as one call.  Overflow is detected per stage
+    and channel and read back once per (op, bucket); the retry re-runs just
+    the overflowed stages at grown caps.  ``batch_stages=False`` dispatches
+    every item as its own bucket; results and retries are identical.
+
+    Args: ``p`` — machine count (a tensor axis, not a device count);
+    ``device`` — where the data plane runs (default ``cuda``; raises without
+    CUDA); ``slack`` — initial capacity headroom multiplier; ``max_retries``
+    — capacity-doubling attempts before giving up; ``batch_stages`` —
+    stage-batched vs per-stage scheduling; ``exact_caps`` — size GridRoute /
+    LocalJoin buffers with an exchange-free counting pass (count-then-emit)
+    instead of estimates + overflow retry."""
+
+    _LOWERING = {
+        Scatter: "_lower_scatter",
+        RouteResidual: "_lower_route_residual",
+        HashPartition: "_lower_hash_partition",
+        SemiJoin: "_lower_semijoin",
+        BroadcastSizes: "_lower_broadcast_sizes",
+        GridRoute: "_lower_grid_route",
+        LocalJoin: "_lower_local_join",
+    }
+
+    #: executor-lifetime learned-caps entries kept before LRU eviction
+    _LEARNED_CAPS_CAPACITY = 1 << 16
+
+    def __init__(
+        self,
+        p: int,
+        device=None,
+        slack: int = 4,
+        max_retries: int = 6,
+        batch_stages: bool = True,
+        exact_caps: bool = True,
+    ):
+        if p < 1:
+            raise ValueError("p must be >= 1")
+        self.p = p
+        self.device = resolve_device(device)
+        self.slack = slack
+        self.max_retries = max_retries
+        self.batch_stages = batch_stages
+        #: grid-route fanouts within this pow2 ratio of their group max merge
+        #: into the max's bucket (sentinel-padded)
+        self.fanout_merge_ratio = 2
+        #: capacities learned from previous runs, keyed by (round, group,
+        #: static key, data fingerprint): a repeat run of the *same data*
+        #: starts each work item at its last successful caps, so steady-state
+        #: runs retry zero times.  LRU-bounded.
+        self._learned_caps: "OrderedDict" = OrderedDict()
+        self.caps_hits = 0
+        self.caps_misses = 0
+        self.caps_evictions = 0
+        #: lifetime count of learned-caps entries dropped after failed runs
+        self.caps_quarantined = 0
+        self.exact_caps = exact_caps
+        self._deadline: Optional[float] = None
+        self._touched_caps: Optional[set] = None
+        self._run_fps: Tuple[str, ...] = ()
+        self._phase_us: Dict[str, float] = {}
+        self._round_us: Dict[str, float] = {}
+
+    # -- capacity guesses (pow2-bucketed; all are starting points for retry) --
+
+    def _cap(self, n_total: int) -> int:
+        """Per-machine receive/output capacity for n_total rows spread over p."""
+        return _pow2(self.slack * (-(-max(1, n_total) // self.p)))
+
+    def _slot_cap(self, n_total: int) -> int:
+        """Per-(src, dst) send-slot capacity."""
+        return _pow2(self.slack * (-(-max(1, n_total) // (self.p * self.p))))
+
+    def _block_cap(self, n_total: int) -> int:
+        """Host-staging block capacity (pow2 so geometry buckets coincide)."""
+        return _pow2(-(-max(1, n_total) // self.p))
+
+    # -- public entry ---------------------------------------------------------
+
+    def run(self, program: RoundProgram, materialize: bool = True,
+            config: Optional[RunConfig] = None) -> DataplaneJoinResult:
+        results, _ = self.run_many([program], materialize=materialize, config=config)
+        return results[0]
+
+    def run_many(
+        self,
+        programs: List[RoundProgram],
+        materialize: bool = True,
+        config: Optional[RunConfig] = None,
+    ) -> Tuple[List[DataplaneJoinResult], BatchRunStats]:
+        """Run several compiled programs through ONE pass of the scheduler.
+
+        Every program's stages become work items of the same op rounds, so
+        stages of different queries landing in one geometry bucket share a
+        dispatch.  The programs must have identical op sequences.  Results
+        demultiplex exactly, and a stage's rows are byte-identical to a
+        serial :meth:`run` of its program.  Returns ``(results, batch)``.
+
+        ``config`` adds a monotonic-clock ``deadline`` checked between
+        dispatches.  On any failure the run's touched learned-caps entries
+        are dropped before the exception propagates."""
+        if config is not None:
+            materialize = config.materialize
+        if not programs:
+            return [], BatchRunStats(queries=0)
+        ops = programs[0].ops
+        for prog in programs[1:]:
+            if prog.ops != ops:
+                raise ValueError(
+                    "run_many needs coalescible programs (identical op "
+                    f"sequences); got {programs[0].op_sequence()} vs "
+                    f"{prog.op_sequence()}"
+                )
+        self._retries = 0
+        self._retry_log: List[Tuple[Tuple, str, str]] = []
+        self._qi_retries: Dict[int, int] = defaultdict(int)
+        self._qi_retry_log: Dict[int, List] = defaultdict(list)
+        self._materialize = materialize
+        self._dispatches = 0
+        self._caps_hits = 0
+        self._caps_misses = 0
+        self._caps_evictions = 0
+        self._caps_quarantined = 0
+        self._bucket_log: Dict[str, List[int]] = {}
+        self._phase_us = {"host_prep": 0.0, "compile": 0.0, "launch": 0.0, "sync": 0.0}
+        self._round_us = {}
+        self._deadline = config.deadline if config is not None else None
+        self._touched_caps = set()
+        self._run_fps = tuple(self._program_fingerprint(p) for p in programs)
+        states = [
+            _StageState(stage=st, skey=(st.hkey, st.ekey), program=prog, qi=qi)
+            for qi, prog in enumerate(programs)
+            for st in prog.stages
+        ]
+
+        try:
+            for op in ops:
+                try:
+                    lower = getattr(self, self._LOWERING[type(op)])
+                except KeyError:
+                    raise DataplaneUnsupported(
+                        f"op {op!r} has no dataplane lowering rule"
+                    ) from None
+                live = [state for state in states if not state.empty]
+                if live:
+                    lower(programs[0], live, op)
+        except BaseException:
+            self._quarantine_touched()
+            raise
+        finally:
+            self._deadline = None
+            self._touched_caps = None
+            self._run_fps = ()
+
+        batch = BatchRunStats(
+            queries=len(programs),
+            dispatches=self._dispatches,
+            retries=self._retries,
+            retry_log=list(self._retry_log),
+            caps_hits=self._caps_hits,
+            caps_misses=self._caps_misses,
+            caps_evictions=self._caps_evictions,
+            caps_quarantined=self._caps_quarantined,
+            bucket_stage_counts={k: list(v) for k, v in self._bucket_log.items()},
+            phase_us=dict(self._phase_us),
+            round_us=dict(self._round_us),
+        )
+        results: List[DataplaneJoinResult] = []
+        for qi, program in enumerate(programs):
+            counts: Dict[Tuple[Attr, ...], int] = defaultdict(int)
+            chunks: List[np.ndarray] = [row for _, row in program.emit]
+            for hkey, c in program.emit_counts.items():
+                counts[hkey] += c
+            for state in states:
+                if state.qi != qi or state.skip_count:
+                    continue
+                counts[state.stage.hkey] += state.n_out
+                if state.rows is not None and state.rows.shape[0]:
+                    chunks.append(state.rows)
+            rows_out = None
+            if materialize:
+                rows_out = (
+                    np.concatenate(chunks, axis=0)
+                    if chunks
+                    else np.zeros((0, len(program.out_cols)), dtype=np.int64)
+                )
+            results.append(DataplaneJoinResult(
+                p=self.p,
+                count=sum(counts.values()),
+                rows=rows_out,
+                per_h_counts=dict(counts),
+                retries=self._qi_retries.get(qi, 0),
+                retry_log=list(self._qi_retry_log.get(qi, [])),
+                dispatches=batch.dispatches,
+                caps_hits=batch.caps_hits,
+                caps_misses=batch.caps_misses,
+                caps_evictions=batch.caps_evictions,
+                bucket_stage_counts={k: list(v) for k, v in batch.bucket_stage_counts.items()},
+                phase_us=dict(batch.phase_us),
+                round_us=dict(batch.round_us),
+            ))
+        return results, batch
+
+    # -- robustness hooks ------------------------------------------------------
+
+    def _check_deadline(self, round_name: str) -> None:
+        """Raise :class:`DeadlineExceededError` once the run's monotonic
+        budget is spent (checked between dispatches only)."""
+        dl = self._deadline
+        if dl is not None and time.monotonic() > dl:
+            raise DeadlineExceededError(
+                f"deadline exceeded before op round {round_name!r} dispatch",
+                op_round=round_name,
+                deadline_s=dl,
+            )
+
+    def _quarantine_touched(self) -> None:
+        """Drop every learned-caps entry the active (failed) run touched."""
+        for k in self._touched_caps or ():
+            if self._learned_caps.pop(k, None) is not None:
+                self._caps_quarantined += 1
+                self.caps_quarantined += 1
+
+    @staticmethod
+    def _program_fingerprint(program) -> str:
+        """Content digest of a program's bound input tables: learned caps are
+        only guaranteed sufficient for the data they were learned on."""
+        h = hashlib.blake2b(digest_size=8)
+        for rel in program.query.relations:
+            h.update(repr(tuple(rel.scheme)).encode())
+            d = np.ascontiguousarray(rel.data)
+            h.update(str(d.dtype).encode())
+            h.update(repr(d.shape).encode())
+            h.update(d.tobytes())
+        return h.hexdigest()
+
+    def _caps_key(self, round_name: str, it) -> Tuple:
+        fps = self._run_fps
+        fp = fps[it.state.qi] if it.state.qi < len(fps) else None
+        return (round_name, it.group, it.key, fp)
+
+    # -- stage-batched scheduler ----------------------------------------------
+
+    @staticmethod
+    def _pow2_stages(s: int) -> int:
+        """Pad the stage axis to a power of two (bounded shape count)."""
+        return 1 << max(0, int(s - 1).bit_length())
+
+    @staticmethod
+    def _stack(arrs, s_pad: int) -> np.ndarray:
+        """Stack per-stage host blocks along a new leading stage axis and
+        zero-pad to ``s_pad`` (padded stages carry count 0 — inert rows that
+        cannot overflow)."""
+        x = np.stack(list(arrs))
+        if x.shape[0] < s_pad:
+            x = np.concatenate([x, np.zeros((s_pad - x.shape[0],) + x.shape[1:], x.dtype)])
+        return x
+
+    @staticmethod
+    def _rows_counts_post(outs, s: int):
+        """Postprocessor for (rows, counts, ovf) primitives: slice off the
+        stage padding and defer the host pull to ``finalize``."""
+        out, c, ovf = outs
+
+        def finalize(out=out, c=c):
+            out, c = to_host(out[:s]), to_host(c[:s])
+            return [(out[i], c[i]) for i in range(s)]
+
+        return finalize, ovf[:s]
+
+    @staticmethod
+    def _hist_post(outs, s: int):
+        """Postprocessor for count-only routes: (s, p_src, p_dst) histograms,
+        structurally overflow-free."""
+        (hist,) = outs
+
+        def finalize(hist=hist):
+            h = to_host(hist[:s])
+            return [h[i] for i in range(s)]
+
+        return finalize, np.zeros((s, 1, 2), np.int32)
+
+    @staticmethod
+    def _count_post(outs, s: int):
+        """Postprocessor for count-only joins: (s, p) match totals."""
+        cnt, ovf = outs
+
+        def finalize(cnt=cnt):
+            c = to_host(cnt[:s])
+            return [c[i] for i in range(s)]
+
+        return finalize, ovf[:s]
+
+    def _run_buckets(self, round_name: str, items: List[_WorkItem], dispatch):
+        """The one scheduling + retry harness every lowering rule runs on.
+
+        Groups ``items`` by (static key, caps) into buckets, builds each
+        bucket's call with ``dispatch(bucket) -> (fn, args, post)``, launches
+        every bucket, then reads each bucket back once — ``post(fn(*args))``
+        gives ``(finalize, ovf (s, p, 2))``.  A *slot* trip re-buckets the
+        whole retry group at ``attempt + 1`` (fresh salts); an *out*-only trip
+        re-buckets just the tripped items with their output channel grown."""
+        if not items:
+            return items
+        self._check_deadline(round_name)
+        t_round = time.perf_counter()
+        phase = self._phase_us
+
+        # learned capacities: start each item at the caps its slot ended the
+        # previous run with
+        for it in items:
+            k = self._caps_key(round_name, it)
+            learned = self._learned_caps.get(k)
+            if self._touched_caps is not None and it.caps:
+                self._touched_caps.add(k)
+            if learned:
+                self._learned_caps.move_to_end(k)
+                for ch in it.caps:
+                    it.caps[ch] = max(it.caps[ch], learned[ch])
+            if it.caps:
+                if learned:
+                    self._caps_hits += 1
+                    self.caps_hits += 1
+                else:
+                    self._caps_misses += 1
+                    self.caps_misses += 1
+        # cap harmonization: items sharing a static key (per query) start
+        # from the group max per channel — a pure function of the round's
+        # item set, so batched and unbatched schedules see identical caps
+        by_key: Dict[Tuple, List[_WorkItem]] = {}
+        for it in items:
+            by_key.setdefault((it.state.qi, it.key), []).append(it)
+        for group in by_key.values():
+            for ch in group[0].caps:
+                m = max(g.caps[ch] for g in group)
+                for g in group:
+                    g.caps[ch] = m
+        pending = list(items)
+        while pending:
+            self._check_deadline(round_name)
+            buckets: Dict[Tuple, List[_WorkItem]] = {}
+            for it in pending:
+                bkey = (it.key, tuple(sorted(it.caps.items())))
+                if not self.batch_stages:
+                    bkey = bkey + (id(it),)     # force singleton buckets
+                buckets.setdefault(bkey, []).append(it)
+
+            t0 = time.perf_counter()
+            prepared = []
+            for bucket in buckets.values():
+                prepared.append((bucket, *dispatch(bucket)))
+                self._dispatches += 1
+                self._bucket_log.setdefault(round_name, []).append(len(bucket))
+            phase["host_prep"] = phase.get("host_prep", 0.0) + (time.perf_counter() - t0) * 1e6
+
+            t0 = time.perf_counter()
+            launched = []
+            for bucket, fn, args, post in prepared:
+                self._check_deadline(round_name)
+                launched.append((bucket, *post(fn(*args))))
+            phase["launch"] = phase.get("launch", 0.0) + (time.perf_counter() - t0) * 1e6
+
+            # one deferred readback per (op, bucket), after every bucket of
+            # the round is enqueued
+            t0 = time.perf_counter()
+            tripped: Dict[int, set] = {}
+            for bucket, finalize, ovf in launched:
+                ovf_np = to_host(ovf)
+                results = finalize()
+                for i, it in enumerate(bucket):
+                    tot = ovf_np[i].reshape(-1, 2).sum(axis=0)
+                    kinds = set()
+                    if int(tot[0]):
+                        kinds.add("slot")
+                    if int(tot[1]):
+                        kinds.add("out")
+                    tripped[id(it)] = kinds
+                    it.result = results[i]
+            phase["sync"] = phase.get("sync", 0.0) + (time.perf_counter() - t0) * 1e6
+
+            group_kinds: Dict[Tuple, set] = {}
+            for it in pending:
+                if tripped[id(it)]:
+                    group_kinds.setdefault(it.group, set()).update(tripped[id(it)])
+
+            retry: List[_WorkItem] = []
+            logged = set()
+            for it in pending:          # original item order → deterministic log
+                kinds = group_kinds.get(it.group)
+                if not kinds:
+                    continue
+                resalt = "slot" in kinds
+                if not resalt and not tripped[id(it)]:
+                    continue
+                if it.group not in logged:
+                    logged.add(it.group)
+                    self._retries += 1
+                    entry = (it.state.skey, round_name, "+".join(sorted(kinds)))
+                    self._retry_log.append(entry)
+                    for qi in sorted({
+                        x.state.qi for x in pending
+                        if x.group == it.group and (resalt or tripped[id(x)])
+                    }):
+                        self._qi_retries[qi] += 1
+                        self._qi_retry_log[qi].append(entry)
+                # grow only the tripped channels: ×2 on the first retry, ×4 after
+                for ch in tripped[id(it)]:
+                    it.caps[ch] *= 2 if it.retries == 0 else 4
+                if resalt:
+                    it.attempt += 1
+                it.retries += 1
+                if it.retries > self.max_retries:
+                    raise RetryExhaustedError(
+                        f"stage {it.state.skey} op {round_name} still overflows "
+                        f"after {self.max_retries} capacity doublings",
+                        stage=it.state.skey,
+                        op_round=round_name,
+                        attempts=it.retries,
+                        attempt_log=tuple(self._retry_log),
+                    )
+                retry.append(it)
+            pending = retry
+        for it in items:
+            if not it.caps:        # count-only rounds carry no capacities
+                continue
+            k = self._caps_key(round_name, it)
+            self._learned_caps[k] = dict(it.caps)
+            self._learned_caps.move_to_end(k)
+        while len(self._learned_caps) > self._LEARNED_CAPS_CAPACITY:
+            self._learned_caps.popitem(last=False)
+            self._caps_evictions += 1
+            self.caps_evictions += 1
+        self._round_us[round_name] = self._round_us.get(round_name, 0.0) + (
+            time.perf_counter() - t_round
+        ) * 1e6
+        return items
+
+    def _apply_exact_caps(self, round_name, items, count_dispatch, caps_from_count, floor):
+        """Count-then-emit capacity sizing (``exact_caps=True``): items with
+        no learned caps run through an exchange-free ``<round>/count`` pass
+        (same destination / key algebra, same attempt-0 salts) and get their
+        emit caps exactly from it; items with learned caps skip the count and
+        start at ``floor`` (below any learned value, so the learned caps win)."""
+        fresh = [it for it in items if not self._learned_caps.get(self._caps_key(round_name, it))]
+        fresh_ids = {id(it) for it in fresh}
+        for it in items:
+            if id(it) not in fresh_ids:
+                it.caps = dict(floor)
+        if not fresh:
+            return
+        counters = [
+            _WorkItem(state=it.state, key=it.key, caps={}, payload=it.payload, group=it.group)
+            for it in fresh
+        ]
+        self._run_buckets(round_name + "/count", counters, count_dispatch)
+        for cit, it in zip(counters, fresh):
+            it.caps = caps_from_count(cit.result)
+
+    # -- per-op lowering rules (each batches every live stage of the op) ------
+
+    def _lower_scatter(self, program: RoundProgram, states, op) -> None:
+        """Scatter costs no load in the MPC model; the inputs stay host-side
+        until RouteResidual stages the carved residuals."""
+
+    def _lower_route_residual(self, program, states, op) -> None:
+        # residual carving is per program, each with its own histogram
+        groups: Dict[int, List[_StageState]] = {}
+        for state in states:
+            groups.setdefault(state.qi, []).append(state)
+        for qi in sorted(groups):
+            pstates = groups[qi]
+            self._route_residual_one(pstates[0].program, pstates)
+
+    def _route_residual_one(self, program, states) -> None:
+        from ..dataplane.exchange import blockify
+
+        query, stats = program.query, program.stats
+        masks = heavy_masks(query, stats)   # once per run, not once per stage
+        staged_states = []
+        for state in states:
+            plan = state.stage.plan
+            residuals = residual_relations(query, stats, plan, state.stage.cfg.eta, masks=masks)
+            if residuals is None:
+                raise RuntimeError(
+                    f"stage {state.skey} compiled for an infeasible η — compiler bug"
+                )
+            # host view of R''_X = ∩ unary pieces decides the stage's fate the
+            # way the simulator's geometry does
+            host_piece: Dict[Attr, np.ndarray] = {}
+            for x in plan.border:
+                vals = None
+                for e in plan.cross_edges:
+                    if x not in e:
+                        continue
+                    pv = np.unique(residuals[(e, (x,))].data[:, 0])
+                    vals = pv if vals is None else np.intersect1d(vals, pv, assume_unique=True)
+                host_piece[x] = vals
+            if any(host_piece[x].size == 0 for x in plan.isolated):
+                state.empty, state.skip_count = True, True
+                continue
+            if any(v.size == 0 for v in host_piece.values()):
+                state.empty = True
+                continue
+            if any(len(residuals[(e, query.relation_for(e).scheme)]) == 0
+                   for e in plan.light_edges):
+                state.empty = True
+                continue
+            state.host_piece_n = {x: int(v.size) for x, v in host_piece.items()}
+            staged_states.append((state, residuals))
+
+        # program-wide unary block capacity and piece count: every stage's
+        # staged R''_X inputs share one shape, so the HashPartition
+        # intersects coalesce into one bucket
+        unary_cap, n_pieces = 1, 1
+        for state, residuals in staged_states:
+            plan = state.stage.plan
+            for x in plan.border:
+                es = [e for e in plan.cross_edges if x in e]
+                n_pieces = max(n_pieces, len(es))
+                for e in es:
+                    unary_cap = max(unary_cap, self._block_cap(len(residuals[(e, (x,))])))
+
+        for state, residuals in staged_states:
+            plan = state.stage.plan
+            state.light = []
+            for e in plan.light_edges:
+                rel = residuals[(e, query.relation_for(e).scheme)]
+                blocks, cnts = blockify(rel.data, self.p, self._block_cap(len(rel)))
+                state.light.append((list(query.relation_for(e).scheme), blocks, cnts, len(rel)))
+            state.unary = {}
+            for x in plan.border:
+                staged = []
+                for e in plan.cross_edges:
+                    if x not in e:
+                        continue
+                    r = residuals[(e, (x,))]
+                    bv, bc = blockify(r.data[:, 0], self.p, unary_cap)
+                    staged.append((bv[:, :, 0], bc, len(r)))
+                # padding with a repeat of the last piece is an intersection
+                # no-op (A ∩ A = unique(A)) that gives every stage one shape
+                while len(staged) < n_pieces:
+                    staged.append(staged[-1])
+                state.unary[x] = staged
+
+    def _lower_hash_partition(self, program, states, op) -> None:
+        from ..dataplane.exchange import salt_offset
+        from ..dataplane.join import batched_sharded_intersect
+
+        items: List[_WorkItem] = []
+        for state in states:
+            for x, staged in state.unary.items():
+                n_max = max(n for _, _, n in staged)
+                items.append(_WorkItem(
+                    state=state,
+                    key=("intersect", tuple(bv.shape for bv, _, _ in staged)),
+                    caps={"slot": self._slot_cap(n_max), "out": self._cap(n_max)},
+                    payload={"x": x, "staged": staged},
+                    group=("intersect", state.skey, x),
+                ))
+
+        def dispatch(bucket):
+            s, s_pad = len(bucket), self._pow2_stages(len(bucket))
+            n_pieces = len(bucket[0].payload["staged"])
+            pieces = [
+                (
+                    self._stack([it.payload["staged"][i][0] for it in bucket], s_pad),
+                    self._stack([it.payload["staged"][i][1] for it in bucket], s_pad),
+                )
+                for i in range(n_pieces)
+            ]
+            salts = [_salt(it.state.skey, it.payload["x"], attempt=it.attempt) for it in bucket]
+            offs = np.asarray([salt_offset(v) for v in salts] + [0] * (s_pad - s), np.int32)
+            caps = bucket[0].caps
+            fn, args = batched_sharded_intersect(
+                pieces, offs, cap_slot=caps["slot"], cap_out=caps["out"],
+                device=self.device, invoke=False,
+            )
+
+            def post(outs, salts=salts, s=s):
+                vals, cnts, ovf = outs
+
+                def finalize(vals=vals, cnts=cnts):
+                    vals, cnts = to_host(vals[:s]), to_host(cnts[:s])
+                    return [(vals[i], cnts[i], salts[i]) for i in range(s)]
+
+                return finalize, ovf[:s]
+
+            return fn, args, post
+
+        for it in self._run_buckets(op.round, items, dispatch):
+            state, x = it.state, it.payload["x"]
+            vals, cnts, salt = it.result
+            total = int(cnts.sum())
+            if total != state.host_piece_n[x]:
+                raise RuntimeError(
+                    f"stage {state.skey}: device |R''_{x}| = {total} != host "
+                    f"{state.host_piece_n[x]} — routing bug"
+                )
+            state.pieces[x] = (vals, cnts)
+            state.piece_salt[x] = salt
+            state.piece_n[x] = total
+
+    def _lower_semijoin(self, program, states, op) -> None:
+        """Phase x (and fused-route) filters column 0, phase y (and
+        fused-filter) column 1."""
+        from ..dataplane.exchange import salt_offset
+        from ..dataplane.join import batched_sharded_semijoin
+
+        if op.phase in ("x", "fused-route"):
+            col = 0
+        elif op.phase in ("y", "fused-filter"):
+            col = 1
+        else:
+            raise DataplaneUnsupported(f"SemiJoin phase {op.phase!r}")
+
+        items: List[_WorkItem] = []
+        for state in states:
+            for idx, (scheme, blocks, cnts, n) in enumerate(state.light):
+                attr = scheme[col]
+                if attr not in state.pieces:
+                    continue
+                pv, pc = state.pieces[attr]
+                items.append(_WorkItem(
+                    state=state,
+                    key=("semijoin", col, tuple(blocks.shape), tuple(pv.shape)),
+                    caps={"slot": self._slot_cap(n), "out": self._cap(n)},
+                    payload={"idx": idx, "attr": attr, "blocks": blocks,
+                             "cnts": cnts, "pv": pv, "pc": pc},
+                    group=("semijoin", state.skey, idx),
+                ))
+
+        def dispatch(bucket):
+            s, s_pad = len(bucket), self._pow2_stages(len(bucket))
+            rows = self._stack([it.payload["blocks"] for it in bucket], s_pad)
+            cnts = self._stack([it.payload["cnts"] for it in bucket], s_pad)
+            pv = self._stack([it.payload["pv"] for it in bucket], s_pad)
+            pc = self._stack([it.payload["pc"] for it in bucket], s_pad)
+            # the exchange salt is pinned to the piece's distribution salt
+            # (rows must land where HashPartition put the piece)
+            offs = np.asarray(
+                [salt_offset(it.state.piece_salt[it.payload["attr"]]) for it in bucket]
+                + [0] * (s_pad - s),
+                np.int32,
+            )
+            caps = bucket[0].caps
+            fn, args = batched_sharded_semijoin(
+                rows, cnts, col, offs, pv, pc, cap_slot=caps["slot"], cap_out=caps["out"],
+                device=self.device, invoke=False,
+            )
+            return fn, args, partial(self._rows_counts_post, s=s)
+
+        for it in self._run_buckets(op.round, items, dispatch):
+            state, idx = it.state, it.payload["idx"]
+            scheme = state.light[idx][0]
+            blocks, cnts = it.result
+            n2 = int(cnts.sum())
+            state.light[idx] = (scheme, blocks, cnts, n2)
+            if n2 == 0:
+                state.empty = True
+
+    def _lower_broadcast_sizes(self, program, states, op) -> None:
+        """The O(p²) size round: the per-machine piece counts crossed to the
+        host with the HashPartition readback; `stage_geometry` turns them
+        into the stage's CP grid × HyperCube shape and the global-id offsets."""
+        for state in states:
+            entries: Dict[Attr, List[Tuple[int, int]]] = {
+                x: list(enumerate(int(c) for c in state.pieces[x][1].tolist()))
+                for x in state.stage.plan.isolated
+            }
+            state.geo = stage_geometry(state.program, state.stage, entries)
+            if state.geo.skip:
+                state.empty, state.skip_count = True, True
+
+    def _lower_grid_route(self, program, states, op) -> None:
+        from ..dataplane.grid import (
+            CPBatchSig,
+            HCBatchSig,
+            _pad_table,
+            batched_sharded_grid_route,
+            batched_sharded_grid_route_count,
+            cp_batch_params,
+            hc_batch_params,
+        )
+
+        # pass 1: per-fragment route parameters; pass 2 pads each group's
+        # fanout to the group max pow2 (sentinel copies are ghosted)
+        raw = []
+        for state in states:
+            geo = state.geo
+            if geo is None:
+                raise DataplaneUnsupported("GridRoute before BroadcastSizes")
+            if geo.cp_size * geo.hc_size >= 1 << 31:
+                raise RuntimeError(f"stage {state.skey}: virtual grid exceeds int32")
+            n_parts = (len(state.light) if state.light else 0) + len(geo.iso_order)
+            state.routed = [None] * n_parts
+            pos = 0
+            # HC side first (join order: light join, then CP cartesian
+            # factors); all light fragments of a stage share one retry group
+            for scheme, blocks, cnts, n in state.light or []:
+                cols, shares, strides, table = hc_batch_params(geo.hc_grid, scheme, geo.cp_size)
+                raw.append((state, "hc", pos, {
+                    "scheme": scheme, "blocks": blocks, "cnts": cnts, "cols": cols,
+                    "shares": shares, "strides": strides, "table": table, "n": n,
+                }))
+                pos += 1
+            # CP side: id-deterministic routing (no salts), per-piece retry
+            for li, x in enumerate(geo.iso_order):
+                vals, cnts = state.pieces[x]
+                dim, scale, table = cp_batch_params(geo.grid, li, geo.hc_size)
+                offsets = np.asarray([geo.offsets[(x, dev)] for dev in range(self.p)],
+                                     dtype=np.int64)
+                raw.append((state, "cp", pos, {
+                    "x": x, "vals": vals, "cnts": cnts, "offsets": offsets,
+                    "dim": dim, "scale": scale, "table": table, "n": state.piece_n[x],
+                }))
+                pos += 1
+
+        group_fanout: Dict[Tuple, int] = {}
+        for state, kind, pos, pl in raw:
+            gk = (state.qi, kind, pl.get("cols"))
+            group_fanout[gk] = max(group_fanout.get(gk, 1), len(pl["table"]))
+
+        items: List[_WorkItem] = []
+        for state, kind, pos, pl in raw:
+            f_max = _pow2(group_fanout[(state.qi, kind, pl.get("cols"))])
+            own = _pow2(len(pl["table"]))
+            fanout = f_max if own * self.fanout_merge_ratio >= f_max else own
+            n = pl["n"]
+            # replicating routes are lumpier than hash exchanges: start the
+            # slot channel at double slack
+            caps = {
+                "slot": 2 * self._slot_cap(n * len(pl["table"])),
+                "out": self._cap(n * len(pl["table"])),
+            }
+            if kind == "hc":
+                sig = HCBatchSig(cols=pl["cols"], fanout=fanout)
+                key = ("hc", sig, tuple(pl["blocks"].shape))
+                group = ("hc", state.skey)
+            else:
+                sig = CPBatchSig(fanout=fanout)
+                key = ("cp", sig, tuple(pl["vals"].shape))
+                group = ("cp", state.skey, pl["x"])
+            items.append(_WorkItem(
+                state=state, key=key, caps=caps, payload={"pos": pos, "sig": sig, **pl},
+                group=group,
+            ))
+
+        def make_dispatch(count: bool):
+            def dispatch(bucket):
+                s, s_pad = len(bucket), self._pow2_stages(len(bucket))
+                sig = bucket[0].payload["sig"]
+                caps = bucket[0].caps
+                pad = s_pad - s
+                cnts = self._stack([it.payload["cnts"] for it in bucket], s_pad)
+                table = np.stack(
+                    [_pad_table(it.payload["table"], sig.fanout) for it in bucket]
+                    + [np.full((sig.fanout,), -1, np.int32)] * pad
+                )
+                route = batched_sharded_grid_route_count if count else batched_sharded_grid_route
+                kw = {} if count else {"cap_slot": caps["slot"], "cap_out": caps["out"]}
+                if bucket[0].key[0] == "hc":
+                    rows = self._stack([it.payload["blocks"] for it in bucket], s_pad)
+                    nf = len(sig.cols)
+                    salts = np.ones((s_pad, nf), dtype=np.uint32)
+                    shares = np.ones((s_pad, nf), dtype=np.uint32)
+                    strides = np.zeros((s_pad, nf), dtype=np.int32)
+                    for i, it in enumerate(bucket):
+                        scheme = it.payload["scheme"]
+                        salts[i] = [
+                            _salt(it.state.skey, "hc", scheme[c], attempt=it.attempt)
+                            for c in sig.cols
+                        ]
+                        shares[i] = it.payload["shares"]
+                        strides[i] = it.payload["strides"]
+                    fn, args = route(
+                        rows, cnts, sig, salts=salts, shares=shares, strides=strides,
+                        table=table, device=self.device, invoke=False, **kw,
+                    )
+                else:
+                    rows = self._stack([it.payload["vals"][:, :, None] for it in bucket], s_pad)
+                    offsets = self._stack(
+                        [np.asarray(it.payload["offsets"], np.int32) for it in bucket], s_pad
+                    )
+                    dims = np.asarray([it.payload["dim"] for it in bucket] + [1] * pad, np.int32)
+                    scales = np.asarray(
+                        [it.payload["scale"] for it in bucket] + [0] * pad, np.int32
+                    )
+                    fn, args = route(
+                        rows, cnts, sig, offsets=offsets, dims=dims, scales=scales,
+                        table=table, device=self.device, invoke=False, **kw,
+                    )
+                if count:
+                    return fn, args, partial(self._hist_post, s=s)
+                return fn, args, partial(self._rows_counts_post, s=s)
+            return dispatch
+
+        if self.exact_caps:
+            self._apply_exact_caps(
+                op.round, items, make_dispatch(count=True),
+                caps_from_count=lambda h: {
+                    "slot": _quant(max(1, int(h.max()))),
+                    "out": _quant(max(1, int(h.sum(axis=0).max()))),
+                },
+                floor={"slot": 16, "out": 16},
+            )
+
+        for it in self._run_buckets(op.round, items, make_dispatch(count=False)):
+            rows, cnts = it.result
+            n = int(cnts.sum())
+            if it.key[0] == "hc":
+                scheme = ["#cell"] + list(it.payload["scheme"])
+            else:
+                scheme = ["#cell", it.payload["x"]]
+            it.state.routed[it.payload["pos"]] = (scheme, rows, cnts, n)
+
+    def _make_colocated_dispatch(self, count: bool):
+        """Bucket dispatch for one level of in-cell colocated joins."""
+        from ..dataplane.join import (
+            batched_sharded_colocated_join,
+            batched_sharded_colocated_join_count,
+        )
+
+        def dispatch(bucket):
+            s, s_pad = len(bucket), self._pow2_stages(len(bucket))
+            a = self._stack([it.payload["a"][0] for it in bucket], s_pad)
+            ac = self._stack([it.payload["a"][1] for it in bucket], s_pad)
+            b = self._stack([it.payload["b"][0] for it in bucket], s_pad)
+            bc = self._stack([it.payload["b"][1] for it in bucket], s_pad)
+            km = None
+            if bucket[0].key[4]:
+                # padded stages carry radix 1: their rows are all zeros, so
+                # the packed key stays 0 and in bounds
+                km = np.stack(
+                    [it.payload["mults"] for it in bucket]
+                    + [np.ones_like(bucket[0].payload["mults"])] * (s_pad - s)
+                )
+            dup_pairs = bucket[0].payload["dup_pairs"]
+            if count:
+                fn, args = batched_sharded_colocated_join_count(
+                    a, ac, b, bc, 0, 0, dup_pairs=dup_pairs, key_mults=km,
+                    device=self.device, invoke=False,
+                )
+                return fn, args, partial(self._count_post, s=s)
+            fn, args = batched_sharded_colocated_join(
+                a, ac, b, bc, 0, 0, cap_out=bucket[0].caps["out"], dup_pairs=dup_pairs,
+                key_mults=km, device=self.device, invoke=False,
+            )
+            return fn, args, partial(self._rows_counts_post, s=s)
+        return dispatch
+
+    def _lower_local_join(self, program, states, op) -> None:
+        """Communication-free output: all fragments of a virtual cell live on
+        machine cell % p, so the per-cell join is a chain of colocated joins
+        on the cell column — attributes shared beyond the cell folded into
+        the join key, disconnected components and CP lists combined as
+        in-cell cartesian factors.  Each chain level batches every stage still
+        joining; the chain is ordered greedily by shared attributes."""
+        from ..dataplane.exchange import unblockify
+
+        for state in states:
+            if state.routed is None:
+                raise DataplaneUnsupported("LocalJoin before GridRoute")
+            state.parts = list(state.routed)
+
+        while True:
+            active = [state for state in states if len(state.parts) >= 2]
+            if not active:
+                break
+            items: List[_WorkItem] = []
+            for state in active:
+                a_scheme = state.parts[0][0]
+                n_parts = len(state.parts)
+                j_best = max(
+                    range(1, n_parts),
+                    key=lambda j: len(
+                        [a for a in a_scheme[1:] if a in state.parts[j][0]]
+                    ) * n_parts - j,
+                )
+                if j_best != 1:
+                    state.parts[1], state.parts[j_best] = state.parts[j_best], state.parts[1]
+                a_scheme, a_blocks, a_cnts, n_a = state.parts[0]
+                b_scheme, b_blocks, b_cnts, n_b = state.parts[1]
+                common = [a for a in a_scheme[1:] if a in b_scheme]
+                dup_pairs = tuple((a_scheme.index(a), b_scheme.index(a)) for a in common)
+                out_scheme = a_scheme + [
+                    a for i, a in enumerate(b_scheme) if i != 0 and a not in common
+                ]
+                mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
+                items.append(_WorkItem(
+                    state=state,
+                    key=("join", tuple(a_blocks.shape), tuple(b_blocks.shape),
+                         dup_pairs, mults is not None),
+                    caps={"out": self._cap(4 * (n_a + n_b))},
+                    payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts),
+                             "dup_pairs": dup_pairs, "scheme": out_scheme, "mults": mults},
+                    group=("join", state.skey),
+                ))
+
+            if self.exact_caps:
+                self._apply_exact_caps(
+                    op.round, items, self._make_colocated_dispatch(count=True),
+                    caps_from_count=lambda c: {"out": _quant(max(1, int(c.max())))},
+                    floor={"out": 16},
+                )
+
+            for it in self._run_buckets(op.round, items, self._make_colocated_dispatch(count=False)):
+                blocks, cnts = it.result
+                n = int(cnts.sum())
+                it.state.parts[0:2] = [(it.payload["scheme"], blocks, cnts, n)]
+
+        for state in states:
+            scheme, blocks, cnts, n = state.parts[0]
+            state.n_out = n
+            if not self._materialize or n == 0:
+                continue
+            rows = unblockify(blocks, cnts)[:, 1:]     # drop the cell column
+            out_scheme = scheme[1:]
+            for a in state.stage.plan.h_set:
+                rows = np.concatenate(
+                    [rows, np.full((rows.shape[0], 1), state.stage.cfg.eta.value(a), np.int64)],
+                    axis=1,
+                )
+                out_scheme = out_scheme + [a]
+            perm = [out_scheme.index(a) for a in state.program.out_cols]
+            state.rows = rows[:, perm]
