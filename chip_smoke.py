@@ -5,9 +5,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. environment: card name and power limit, torch / CUDA / nvcc versions,
      and the build of every hand-written kernel from ``kernels/csrc``;
-  2. every kernel against its plain PyTorch version on the card, bit for bit,
-     on edge-case inputs (ragged lengths, empty and full counts, all-sentinel
-     segments, duplicated keys, keys near +-2^31);
+  2. every kernel against its plain PyTorch version on the card on
+     edge-case inputs: the integer kernels bit for bit (ragged lengths,
+     empty and full counts, all-sentinel segments, duplicated keys, keys
+     near +-2^31); flash_attention at ragged and Sq != Sk shapes, causal and
+     not, head dims 16-128, within 1e-4 (f32) and, in bf16, within the
+     rounding error of the output and the weights
+     (``ref.flash_attention_bf16_tolerance``); ssd_chunk at chunks
+     16/64/256, one chunk and eight, within 1e-4 of the plain version's
+     largest magnitude;
   3. the join service at real size: the triangle query over a 2M-edge Zipf
      graph (500k vertices, skew 0.9, degree-oriented), ``JoinSession(p=64)``,
      submitted cold and warm; count against a scipy-sparse oracle, warm rows
@@ -16,10 +22,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      HashPartition and SemiJoin work; count against its oracle;
   5. row order: small parity queries on the card and on the CPU's plain path
      give byte-identical rows, counts, retries and retry logs;
-  6. each kernel timed on the largest inputs the main path (phases 3-5) gave
+  6. each join kernel timed on the largest inputs the main path (phases 3-5) gave
      it, beside its plain version, ``torch.searchsorted`` where it applies,
-     and its memory bound (medians of five alternating rounds); then the
-     ``kernels`` JSON line.
+     and its memory bound (medians of five alternating rounds);
+  7. the kernel library at model widths: flash_attention at h2o-danube-1.8b
+     prefill, ssd_chunk at mamba2-780m, hash_partition over 2M keys (and
+     2M int64 keys through fold64), launches counted over one call each,
+     outputs checked against the plain versions (and the bf16 attention
+     limit against a variant with a key tile dropped, which it must catch in
+     most rows), then each timed beside its plain version, its bound and
+     (attention) SDPA, with TF32 off;
+  then the ``kernels`` JSON line (six rows).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 
@@ -33,6 +46,7 @@ under cProfile (host time by function) and one under torch.profiler
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import subprocess
 import sys
@@ -43,6 +57,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
+FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores (data sheet)
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data sheet)
 INT32_MAX = 2**31 - 1
 
 KERNELS = {
@@ -53,7 +69,21 @@ KERNELS = {
                           "src/repro/kernels/merge_join.py:112"),
     "merge_join_pairs": ("src/repro_torch/kernels/csrc/merge_join.cu",
                          "src/repro/kernels/merge_join.py:74"),
+    "hash_partition": ("src/repro_torch/kernels/csrc/hash_partition.cu",
+                       "src/repro/kernels/hash_partition.py:100"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:73"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:62"),
 }
+JOIN_KERNELS = ("hash_partition_pack", "merge_join_counts", "merge_join_pairs")
+LIBRARY_KERNELS = ("hash_partition", "flash_attention", "ssd_chunk")
+# phase 7's widths: h2o-danube-1.8b prefill (src/repro/configs/h2o_danube_1_8b.py;
+# its 4096-token window equals full causal attention at 4096 tokens),
+# mamba2-780m (src/repro/configs/mamba2_780m.py: d_inner 3072 = 48 heads of
+# 64, d_state 128, chunk 256), and the triangle-2M table size
+ATTN_WIDTHS = dict(batch=2, heads=32, kv_heads=8, seq=4096, head_dim=80)
+SSD_WIDTHS = dict(batch=4, heads=48, seq=4096, chunk=256, headdim=64, d_state=128)
+HASH_KEYS, HASH_PARTS = 2_000_000, 64
 
 
 def log(msg: str) -> None:
@@ -154,21 +184,22 @@ def parity_queries():
 
 
 def kernel_modules():
-    from repro_torch.kernels import hash_partition as hp
-    from repro_torch.kernels import merge_join as mj
+    """The join kernels' wrapper modules (by module path: the package
+    exports the op ``hash_partition`` under its module's name)."""
+    return (importlib.import_module("repro_torch.kernels.hash_partition"),
+            importlib.import_module("repro_torch.kernels.merge_join"))
 
-    return hp, mj
 
+def launch_counts(names) -> dict:
+    from repro_torch.kernels import _build
 
-def launch_counts() -> dict:
-    hp, mj = kernel_modules()
-    return {"hash_partition_pack": hp.launches, "merge_join_counts": mj.counts_launches,
-            "merge_join_pairs": mj.pairs_launches}
+    return {name: _build.launches[name] for name in names}
 
 
 def reset_counts() -> None:
-    hp, mj = kernel_modules()
-    hp.launches = mj.counts_launches = mj.pairs_launches = 0
+    from repro_torch.kernels import _build
+
+    _build.launches.clear()
 
 
 class InputCapture:
@@ -200,6 +231,23 @@ class InputCapture:
         for mod, attr, orig in self._restore:
             setattr(mod, attr, orig)
         self._restore = []
+
+
+def time_rounds(torch, kern, plain, library):
+    """Five rounds of ``cuda_ms`` (10 calls; the plain version 3), alternating
+    which of kernel / plain / library runs first → (medians by name, the
+    rounds' ranges as text)."""
+    fns = {"kernel": (kern, 10), "plain": (plain, 3)}
+    if library is not None:
+        fns["library"] = (library, 10)
+    times = {k: [] for k in fns}
+    for r in range(5):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            fn, n = fns[k]
+            times[k].append(cuda_ms(torch, fn, reps=n))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    spread = ", ".join(f"{k} {min(v):.4f}-{max(v):.4f}" for k, v in times.items())
+    return med, spread
 
 
 def cuda_ms(torch, fn, reps: int = 10) -> float:
@@ -259,9 +307,9 @@ def _sorted_rows(rng, s, n, dom, fill, sentinel_rows=()):
 
 
 def phase_kernels(torch, dev) -> None:
-    from repro_torch.kernels import hash_partition as hp
-    from repro_torch.kernels import merge_join as mj
     from repro_torch.kernels import ref
+
+    hp, mj = kernel_modules()
 
     rng = np.random.default_rng(0)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -325,12 +373,12 @@ def phase_kernels(torch, dev) -> None:
 
 def run_submit(torch, session, query, lam, label: str) -> dict:
     torch.cuda.synchronize()
-    before = launch_counts()
+    before = launch_counts(JOIN_KERNELS)
     t0 = time.perf_counter()
     res = session.submit(query, lam=lam)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    after = launch_counts()
+    after = launch_counts(JOIN_KERNELS)
     r = res.result
     info = {
         "label": label, "wall_s": wall, "count": res.count, "retries": res.retries,
@@ -434,12 +482,12 @@ def phase_parity(torch) -> None:
 
 
 def phase_timing(torch, capture: InputCapture, launches: dict) -> list:
-    from repro_torch.kernels import hash_partition as hp
-    from repro_torch.kernels import merge_join as mj
     from repro_torch.kernels import ref
 
+    hp, mj = kernel_modules()
     out = []
-    for name, (source, replaces) in KERNELS.items():
+    for name in JOIN_KERNELS:
+        source, replaces = KERNELS[name]
         if name not in capture.best:
             raise AssertionError(f"{name}: the main path never called it")
         _, args = capture.best[name]
@@ -481,18 +529,7 @@ def phase_timing(torch, capture: InputCapture, launches: dict) -> list:
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
         del got, want
-        # five rounds, alternating which of kernel / plain / library runs
-        # first; the medians go into the kernels line, the spread to the log
-        fns = {"kernel": (kern, 10), "plain": (plain, 3)}
-        if library is not None:
-            fns["library"] = (library, 10)
-        times = {k: [] for k in fns}
-        for r in range(5):
-            for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-                fn, reps = fns[k]
-                times[k].append(cuda_ms(torch, fn, reps=reps))
-        med = {k: float(np.median(v)) for k, v in times.items()}
-        spread = ", ".join(f"{k} {min(v):.4f}-{max(v):.4f}" for k, v in times.items())
+        med, spread = time_rounds(torch, kern, plain, library)
         ms, plain_ms, library_ms = med["kernel"], med["plain"], med.get("library")
         # the bytes the function must move: each needed input read once,
         # each output written once
@@ -512,6 +549,274 @@ def phase_timing(torch, capture: InputCapture, launches: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The kernel library: hash_partition, flash_attention, ssd_chunk
+# ---------------------------------------------------------------------------
+
+
+def attention_close(torch, got, q, k, v, causal: bool, controls=None, heads: int = 8) -> dict:
+    """Hold a flash_attention output against its plain version, ``heads`` rows
+    of BH at a time (the plain version holds a (heads, Sq, Sk) fp32 tensor).
+
+    The limit on |Δ| is 1e-4 + 1e-4·|plain| in float32 and, in bfloat16,
+    ``ref.flash_attention_bf16_tolerance``: the rounding error of the output
+    and of the weights, from these inputs.  Raises on a wrong shape, a
+    non-finite value or a |Δ| past the limit; returns the max |Δ| and the
+    largest share of the limit used.  ``controls`` maps a name to a
+    deliberately wrong plain variant f(q, k, v); for each, the result also
+    holds the share of q rows in which it passes the limit somewhere
+    ("caught"), under this limit and under 3e-2 + 3e-2·|plain|, the JAX
+    test's bf16 tolerance, and the largest share of the limit it used."""
+    from repro_torch.kernels import ref
+
+    if got.shape != q.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError("flash_attention: wrong shape or non-finite output")
+    out = {"max_abs_err": 0.0, "limit_used": 0.0}
+    seen = {name: [0, 0, 0.0] for name in controls or {}}
+    for i in range(0, q.shape[0], heads):
+        qs, ks, vs = q[i:i + heads], k[i:i + heads], v[i:i + heads]
+        want = ref.flash_attention_ref(qs, ks, vs, causal)
+        if q.dtype == torch.bfloat16:
+            lim = ref.flash_attention_bf16_tolerance(qs, ks, vs, want, causal)
+        else:
+            lim = 1e-4 + 1e-4 * want.float().abs()
+        want = want.float()
+        diff = (got[i:i + heads].float() - want).abs()
+        out["max_abs_err"] = max(out["max_abs_err"], float(diff.max()))
+        out["limit_used"] = max(out["limit_used"], float((diff / lim).max()))
+        for name, fn in (controls or {}).items():
+            cd = (fn(qs, ks, vs).float() - want).abs()
+            seen[name][0] += int((cd > lim).any(-1).sum())
+            seen[name][1] += int((cd > 3e-2 + 3e-2 * want.abs()).any(-1).sum())
+            seen[name][2] = max(seen[name][2], float((cd / lim).max()))
+        del want, lim, diff
+    if out["limit_used"] > 1:
+        raise AssertionError(f"flash_attention: differs from its plain version by "
+                             f"{out['max_abs_err']} ({out['limit_used']:.3g} of the limit)")
+    rows = q.shape[0] * q.shape[1]
+    for name, (caught, caught_3e2, used) in seen.items():
+        out[name] = {"rows_caught": caught / rows, "rows_caught_at_3e-2": caught_3e2 / rows,
+                     "limit_used": used}
+    return out
+
+
+def dropped_tile_control(torch, q, k, v):
+    """The plain causal version with each q row's own 32-key tile left out
+    (an off-by-one in a kernel's tile loop): a fault the check must see."""
+    from repro_torch.kernels import ref
+
+    w = ref.attention_weights(q, k, True)
+    iq = torch.arange(q.shape[1], device=q.device)[:, None]
+    ik = torch.arange(k.shape[1], device=q.device)[None, :]
+    w = w * (ik < iq // 32 * 32)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bqk,bkd->bqd", w.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def unrounded_control(torch, q, k, v):
+    """The plain causal version without the rounding of the weights to v's
+    type: a fault within rounding noise, which no limit can see."""
+    from repro_torch.kernels import ref
+
+    w = ref.attention_weights(q, k, True)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(v.dtype)
+
+
+def ssd_close(torch, got, want) -> float:
+    """Max |Δ| over y and the state; raises unless each is finite and within
+    1e-4 of its plain version's largest magnitude."""
+    err = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        d = float((g - w).abs().max())
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()) or d > 1e-4 * scale:
+            raise AssertionError(f"ssd_chunk: differs from its plain version by {d} "
+                                 f"(max |plain| {scale})")
+        err = max(err, d)
+    return err
+
+
+def ssd_inputs(torch, rng, batch, heads, s, p, n, dev):
+    """x, B, C ~ N(0, 1), dt ~ U(0.01, 0.2), a ~ -U(0.5, 2) per head (as
+    benchmarks/bench_kernels.py draws them), flattened to (batch·heads, ...)."""
+    bh = batch * heads
+    a = -np.tile(rng.uniform(0.5, 2.0, heads).astype(np.float32), batch)
+    arrays = (rng.standard_normal((bh, s, p), dtype=np.float32),
+              rng.uniform(0.01, 0.2, (bh, s)).astype(np.float32), a,
+              rng.standard_normal((bh, s, n), dtype=np.float32),
+              rng.standard_normal((bh, s, n), dtype=np.float32))
+    return [torch.from_numpy(x).to(dev) for x in arrays]
+
+
+def phase_library_kernels(torch, dev) -> None:
+    """Phase 2, continued: the library kernels on edge cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.hash_partition import hash_partition_cuda
+    from repro_torch.kernels.ssd import ssd_chunk_cuda
+
+    rng = np.random.default_rng(1)
+    for n in (1, 1000, 3001, 1 << 20):
+        for parts in (1, 7, 64):
+            keys = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+            keys[: min(n, 4)] = [INT32_MAX, -(2**31), INT32_MAX - 1, -(2**31) + 1][: min(n, 4)]
+            k = torch.from_numpy(keys).to(dev)
+            got = hash_partition_cuda(k, parts)
+            torch.cuda.synchronize()
+            for g, w in zip(got, ref.hash_partition_ref(k, parts)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"hash_partition N={n} P={parts}: kernel differs")
+        log(f"[kernels] hash_partition N={n} P=1,7,64: equal")
+
+    for sq, sk in ((100, 100), (128, 256), (384, 384)):
+        for d in (16, 32, 64, 80, 128):
+            found = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.from_numpy(rng.standard_normal((2, s, d), dtype=np.float32))
+                           .to(dev).to(dtype) for s in (sq, sk, sk))
+                for causal in (True, False):
+                    got = flash_attention_cuda(q, k, v, causal)
+                    torch.cuda.synchronize()
+                    res = attention_close(torch, got, q, k, v, causal)
+                    err, used = found.get(dtype, (0.0, 0.0))
+                    found[dtype] = (max(err, res["max_abs_err"]), max(used, res["limit_used"]))
+            log(f"[kernels] flash_attention Sq={sq} Sk={sk} D={d} causal/full: max |err| "
+                + ", ".join(f"{str(t)[6:]} {e:.3g} ({u:.3f} of the limit)"
+                            for t, (e, u) in found.items()))
+
+    for chunk in (16, 64, 256):
+        for n_chunks in (1, 8):
+            for p, n in ((64, 128), (16, 32)):
+                args = ssd_inputs(torch, rng, 1, 1, chunk * n_chunks, p, n, dev)
+                got = ssd_chunk_cuda(*args, chunk)
+                torch.cuda.synchronize()
+                err = ssd_close(torch, got, ref.ssd_chunked_ref(*args, chunk))
+                log(f"[kernels] ssd_chunk BH=1 S={chunk * n_chunks} chunk={chunk} P={p} "
+                    f"N={n}: max |err| {err:.3g}")
+
+
+def phase_library(torch, dev) -> list:
+    """Phase 7: the kernel library at model widths.
+
+    flash_attention at h2o-danube-1.8b prefill (batch 2 x 32 heads, 8 KV
+    heads expanded to 32, 4096 tokens, head dim 80, bf16, causal);
+    ssd_chunk at mamba2-780m (batch 4 x 48 heads, S = 4096, chunk 256,
+    headdim 64, d_state 128, fp32); hash_partition over 2,000,000 int32
+    keys into 64 partitions, and once over int64 keys through fold64.
+    Launches are counted over one call of each op; then each kernel is held
+    against its plain version and timed beside it (and beside SDPA for
+    attention)."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    batch, heads, kv_heads, seq, hd = (ATTN_WIDTHS[k] for k in
+                                       ("batch", "heads", "kv_heads", "seq", "head_dim"))
+    q = torch.from_numpy(rng.standard_normal((batch * heads, seq, hd), dtype=np.float32))
+    kv = [torch.from_numpy(rng.standard_normal((batch, kv_heads, seq, hd), dtype=np.float32))
+          for _ in range(2)]
+    q = q.to(dev).to(torch.bfloat16)
+    k, v = (x.to(dev).to(torch.bfloat16).repeat_interleave(heads // kv_heads, dim=1)
+            .reshape(batch * heads, seq, hd) for x in kv)
+    sw = SSD_WIDTHS
+    chunk, s_len, p_dim, n_dim = sw["chunk"], sw["seq"], sw["headdim"], sw["d_state"]
+    ssd_args = ssd_inputs(torch, rng, sw["batch"], sw["heads"], s_len, p_dim, n_dim, dev)
+    keys32 = torch.from_numpy(rng.integers(-(2**31), 2**31, HASH_KEYS).astype(np.int32)).to(dev)
+    keys64 = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, HASH_KEYS,
+                                           dtype=np.int64)).to(dev)
+    torch.cuda.synchronize()
+    log(f"[library] inputs made in {time.perf_counter() - t0:.1f} s")
+
+    reset_counts()
+    attn = ops.flash_attention(q, k, v, causal=True)
+    y, state = ops.ssd_chunk(*ssd_args, chunk=chunk)
+    part32, hist32 = ops.hash_partition(keys32, HASH_PARTS)
+    part64, hist64 = ops.hash_partition(keys64, HASH_PARTS)
+    torch.cuda.synchronize()
+    launches = launch_counts(LIBRARY_KERNELS)
+    log(f"[library] kernel launches: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name}: no launch in phase 7")
+
+    # the plain attention holds a (BH, S, S) fp32 score tensor: 8 heads at a time
+    plain_attn = lambda: torch.cat([ref.flash_attention_ref(q[i:i + 8], k[i:i + 8],
+                                                            v[i:i + 8], True)
+                                    for i in range(0, q.shape[0], 8)])
+    controls = {"dropped_tile": lambda *a: dropped_tile_control(torch, *a),
+                "unrounded": lambda *a: unrounded_control(torch, *a)}
+    attn_check = attention_close(torch, attn, q, k, v, True, controls)
+    log(f"[library] flash_attention against its plain version and two wrong "
+        f"variants of it: {json.dumps(attn_check)}")
+    # the limit has teeth: it catches a dropped key tile in most rows
+    if attn_check["dropped_tile"]["rows_caught"] < 0.5:
+        raise AssertionError("flash_attention: the bf16 limit misses a dropped key tile")
+    errs = {"flash_attention": attn_check["max_abs_err"],
+            "ssd_chunk": ssd_close(torch, (y, state), ref.ssd_chunked_ref(*ssd_args, chunk))}
+    folded = ops.fold64(keys64)
+    for (part, hist), keys in (((part32, hist32), keys32), ((part64, hist64), folded)):
+        want = ref.hash_partition_ref(keys, HASH_PARTS)
+        if not (torch.equal(part, want[0]) and torch.equal(hist, want[1])
+                and int(hist.sum()) == keys.numel()):
+            raise AssertionError("hash_partition: kernel differs from its plain version")
+    errs["hash_partition"] = 0
+    del attn, y, state, part32, part64
+    torch.cuda.empty_cache()
+    log(f"[library] outputs agree with the plain versions: {json.dumps(errs)}")
+
+    bh_attn, bh_ssd = q.shape[0], ssd_args[0].shape[0]
+    pairs = bh_attn * seq * (seq + 1) // 2          # (q, k) pairs the causal mask keeps
+    # per chunk: C·Bᵀ and the weighted x on the causal triangle, then the
+    # inter-chunk term C·prevᵀ and the state update xᵀ·B, 2 FLOPs per MAC
+    tri = chunk * (chunk + 1) // 2
+    ssd_flops = bh_ssd * (s_len // chunk) * 2 * (tri * (n_dim + p_dim)
+                                                 + 2 * chunk * p_dim * n_dim)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = {
+        "flash_attention": dict(
+            kern=lambda: ops.flash_attention(q, k, v, causal=True), plain=plain_attn,
+            # SDPA's fused kernels take (batch, heads, S, D); (BH, S, D) would
+            # send it to its unfused math path
+            library=lambda: sdpa(*(x.view(batch, heads, seq, hd) for x in (q, k, v)),
+                                 is_causal=True),
+            flops=4 * hd * pairs, peak=BF16_FLOP_PER_S,
+            nbytes=2 * (q.numel() * 2 + k.numel() + v.numel()),
+            shape=f"BH={bh_attn} S={seq} D={hd} bf16 causal"),
+        "ssd_chunk": dict(
+            kern=lambda: ops.ssd_chunk(*ssd_args, chunk=chunk),
+            plain=lambda: ref.ssd_chunked_ref(*ssd_args, chunk), library=None,
+            flops=ssd_flops, peak=FP32_FLOP_PER_S,
+            nbytes=4 * (sum(a.numel() for a in ssd_args) + ssd_args[0].numel()
+                        + bh_ssd * p_dim * n_dim),
+            shape=f"BH={bh_ssd} S={s_len} chunk={chunk} P={p_dim} N={n_dim} fp32"),
+        "hash_partition": dict(
+            kern=lambda: ops.hash_partition(keys32, HASH_PARTS),
+            plain=lambda: ref.hash_partition_ref(keys32, HASH_PARTS), library=None,
+            flops=0, peak=1.0, nbytes=8 * keys32.numel() + 4 * HASH_PARTS,
+            shape=f"N={HASH_KEYS} int32 P={HASH_PARTS}"),
+    }
+    rows = []
+    for name in LIBRARY_KERNELS:
+        c = cases[name]
+        med, spread = time_rounds(torch, c["kern"], c["plain"], c["library"])
+        ops_ms = c["flops"] / c["peak"] * 1e3
+        bytes_ms = c["nbytes"] / HBM_BYTES_PER_S * 1e3
+        source, replaces = KERNELS[name]
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches[name], "max_abs_err": errs[name], "ms": med["kernel"],
+               "plain_ms": med["plain"], "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+               "library_ms": med.get("library")}
+        log(f"[library] {name} {c['shape']}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({c['flops']:.4g} FLOP -> {ops_ms:.4f} ms, "
+            f"{c['nbytes']} bytes -> {bytes_ms:.4f} ms), max_abs_err {row['max_abs_err']}; "
+            f"medians of 5 rounds, range ms: {spread}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -529,9 +834,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # the plain versions' float32 products run in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     env = phase_env(torch)
+    log("[env] TF32 off: torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
     phase_kernels(torch, dev)
+    phase_library_kernels(torch, dev)
 
     from repro_torch.mpc import JoinSession
 
@@ -546,7 +858,7 @@ def main(argv=None) -> int:
     if not {"step2-unary", "step2-bx"} <= heavy["rounds"]:
         raise AssertionError(f"heavy graph ran no HashPartition/SemiJoin: {heavy['rounds']}")
     phase_parity(torch)
-    launches = launch_counts()
+    launches = launch_counts(JOIN_KERNELS)
     capture.remove()
     log(f"[main] kernel launches over phases 3-5: {json.dumps(launches)}")
     for name, n in launches.items():
@@ -558,6 +870,7 @@ def main(argv=None) -> int:
     del session, main3, heavy
     torch.cuda.empty_cache()
     rows = phase_timing(torch, capture, launches)
+    rows += phase_library(torch, dev)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(f"{env['smi']}")
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,13 @@
-# Hand-written CUDA kernels of the join dataplane (csrc/*.cu), their plain
-# PyTorch versions (ref.py), the ctypes build (_build.py) and the
-# device-dispatching entry points (ops.py).
-from .ops import hash_partition_pack, merge_join_counts, merge_join_pairs
+# Hand-written CUDA kernels (csrc/*.cu), their plain PyTorch versions
+# (ref.py), the ctypes build (_build.py) and the device-dispatching entry
+# points (ops.py): the join dataplane's ops and the kernel library of
+# ``repro.kernels``.
+from .ops import (
+    flash_attention,
+    fold64,
+    hash_partition,
+    hash_partition_pack,
+    merge_join_counts,
+    merge_join_pairs,
+    ssd_chunk,
+)

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -28,17 +29,25 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: the C launchers each source exports: name → (argtypes, source stem)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the C functions each source exports: name → (argtypes, source stem)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LAUNCHERS = {
     "hash_partition_pack_launch": (
         [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P], "hash_partition"),
+    "hash_partition_launch": ([_P, _I, _I, _P, _P, _P], "hash_partition"),
     "merge_join_counts_launch": ([_P, _P, _I, _I, _I, _P, _P, _P], "merge_join"),
     "merge_join_pairs_launch": ([_P, _P, _I, _I, _I, _P, _P, _P], "merge_join"),
+    "flash_attention_launch": (
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], "flash_attention"),
+    "ssd_chunk_launch": ([_P] * 7 + [_I] * 5 + [_P], "ssd"),
 }
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+#: launches per kernel name since the last ``launches.clear()``: each wrapper
+#: adds one where it launches its kernel, and nowhere else
+launches: Counter = Counter()
 
 
 class KernelBuildError(RuntimeError):
@@ -101,7 +110,8 @@ def build_all() -> Dict[str, str]:
 
 
 def launcher(name: str):
-    """The ctypes function of one C launcher, building its source if needed."""
+    """The ctypes function of one exported C function (each returns an int),
+    building its source if needed."""
     argtypes, stem = LAUNCHERS[name]
     with _lock:
         lib = _libs.get(stem)
@@ -114,7 +124,8 @@ def launcher(name: str):
     return fn
 
 
-def check(name: str, rc: int) -> None:
-    """Raise if a launcher reported a CUDA error."""
+def launched(name: str, rc: int) -> None:
+    """Raise if a launcher reported a CUDA error, else count one launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    launches[name] += 1

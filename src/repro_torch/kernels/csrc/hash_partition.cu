@@ -1,11 +1,12 @@
-// hash_partition_pack: the hash exchange's send side, batched over segments.
+// hash_partition_pack: the hash exchange's send side, batched over segments;
+// hash_partition: partition id per key plus the global histogram.
 //
-// Replaces the TPU kernel `_pack_kernel` / `hash_partition_pack_pallas` in
-// src/repro/kernels/hash_partition.py.  For every row of every segment it
-// computes the partition id under the uint32 multiplicative mix (rows at or
-// past the segment's valid count go to the ghost partition P), the row's
-// stable rank among the rows of the same partition (its send slot), and the
-// per-segment send counts.
+// hash_partition_pack replaces the TPU kernel `_pack_kernel` /
+// `hash_partition_pack_pallas` in src/repro/kernels/hash_partition.py.  For
+// every row of every segment it computes the partition id under the uint32
+// multiplicative mix (rows at or past the segment's valid count go to the
+// ghost partition P), the row's stable rank among the rows of the same
+// partition (its send slot), and the per-segment send counts.
 //
 // The TPU kernel carries a running per-partition base from one 1024-row tile
 // to the next through its sequential grid.  Blocks on this card run in no
@@ -26,7 +27,20 @@
 // written (12 bytes); pass 3 reads the key a second time and the tile
 // histograms are (P+1)·4 bytes per 1024 rows.  The design keeps every
 // per-row access coalesced and all ranking in registers and shared memory.
+//
+// hash_partition replaces the TPU kernel `_kernel` / `hash_partition_pallas`
+// in the same file.  The TPU kernel writes a (N/1024, P) per-tile histogram
+// (a one-hot sum, since the TPU has no atomics) and the public op pads N to a
+// multiple of 1024 with zero keys, sums the tiles and subtracts the padding's
+// share.  Here one pass does it all: each thread hashes keys in a grid-stride
+// loop and writes their partition ids; every warp aggregates its lanes'
+// equal ids (__match_any_sync) into one shared-memory add per distinct id;
+// each block then adds its P bins into the zeroed (P,) global histogram with
+// one integer atomicAdd per bin.  Integer atomics commute, so the histogram
+// is exact whatever the order.  Keys at or past N are masked off, not hashed.
+// Bound: memory, 4 bytes of key read and 4 bytes of id written per key.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -131,7 +145,54 @@ hp_tile_rank(const int* __restrict__ keys, const int* __restrict__ counts,
   }
 }
 
+constexpr int kHistThreads = 256;
+constexpr int kHistMaxBlocks = 1056;      // 8 blocks on each of 132 SMs
+
+__global__ void __launch_bounds__(kHistThreads)
+hp_partition_hist(const int* __restrict__ keys, int n, int n_parts,
+                  int* __restrict__ part_out, int* __restrict__ hist) {
+  extern __shared__ int bins[];            // n_parts + 1: bin n_parts is the mask
+  for (int b = threadIdx.x; b <= n_parts; b += blockDim.x) bins[b] = 0;
+  __syncthreads();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  // every lane runs the same number of rounds, so the warp-wide match
+  // sees all 32 lanes; rows past n join the masked bin and write nothing
+  const int64_t rounds = (n + stride - 1) / stride;
+  for (int64_t r = 0; r < rounds; ++r) {
+    const int64_t row = r * stride + blockIdx.x * blockDim.x + threadIdx.x;
+    const bool in_range = row < n;
+    const int part = in_range ? static_cast<int>(mix_u32(static_cast<uint32_t>(keys[row])) %
+                                                 static_cast<uint32_t>(n_parts))
+                              : n_parts;
+    if (in_range) part_out[row] = part;
+    const unsigned peers = __match_any_sync(0xffffffffu, part);
+    if (lane == __ffs(peers) - 1) atomicAdd(&bins[part], __popc(peers));
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < n_parts; b += blockDim.x) {
+    if (bins[b] != 0) atomicAdd(&hist[b], bins[b]);
+  }
+}
+
 }  // namespace
+
+// keys (n,) int32 → part (n,) int32 and hist (n_parts,) int32, which this
+// call zeroes before the kernel adds into it.  Returns cudaGetLastError().
+extern "C" int hash_partition_launch(const int* keys, int n, int n_parts, int* part,
+                                     int* hist, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(int) * n_parts, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const int blocks = static_cast<int>(
+        std::min<int64_t>((static_cast<int64_t>(n) + kHistThreads - 1) / kHistThreads,
+                          kHistMaxBlocks));
+    hp_partition_hist<<<blocks, kHistThreads, (n_parts + 1) * sizeof(int), st>>>(
+        keys, n, n_parts, part, hist);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // keys (n_segs, n) int32; counts (n_segs,) int32; outputs part, slot
 // (n_segs, n) and send_counts (n_segs, n_parts) int32; scratch

@@ -1,8 +1,10 @@
-"""Wrapper of the ``hash_partition_pack`` CUDA kernel (csrc/hash_partition.cu).
+"""Wrappers of the ``hash_partition_pack`` and ``hash_partition`` CUDA
+kernels (csrc/hash_partition.cu).
 
-The kernel replaces the TPU kernel ``hash_partition_pack_pallas``
-(src/repro/kernels/hash_partition.py): hash + partition id + stable
-in-partition slot + send counts for every segment of a batch in one call.
+They replace the TPU kernels ``hash_partition_pack_pallas`` (hash +
+partition id + stable in-partition slot + send counts for every segment of a
+batch in one call) and ``hash_partition_pallas`` (partition id per key and
+the global partition histogram) of src/repro/kernels/hash_partition.py.
 """
 
 from __future__ import annotations
@@ -15,20 +17,15 @@ TILE = 1024
 WARPS = TILE // 32
 SMEM_LIMIT = 48 * 1024          # default dynamic shared memory per block
 
-#: calls since the last reset that launched the kernel (CUDA tensors with
-#: at least one segment; with N = 0 only the scan pass runs)
-launches = 0
 
-
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, name: str = "hash_partition_pack") -> None:
     if not cond:
-        raise ValueError(f"hash_partition_pack: {msg}")
+        raise ValueError(f"{name}: {msg}")
 
 
 def hash_partition_pack_cuda(keys: torch.Tensor, counts: torch.Tensor, n_parts: int):
     """keys (S, N) int32, counts (S,) int32, both contiguous on one CUDA
     device → (part (S, N), slot (S, N), send_counts (S, n_parts)) int32."""
-    global launches
     _require(keys.is_cuda and counts.device == keys.device, "tensors must share one CUDA device")
     _require(keys.dtype == torch.int32 and counts.dtype == torch.int32, "tensors must be int32")
     _require(keys.dim() == 2 and counts.shape == (keys.shape[0],), "want keys (S, N), counts (S,)")
@@ -50,6 +47,27 @@ def hash_partition_pack_cuda(keys: torch.Tensor, counts: torch.Tensor, n_parts: 
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     rc = fn(keys.data_ptr(), counts.data_ptr(), s, n, n_parts, part.data_ptr(),
             slot.data_ptr(), send.data_ptr(), scratch.data_ptr(), stream)
-    _build.check("hash_partition_pack", rc)
-    launches += 1
+    _build.launched("hash_partition_pack", rc)    # N = 0 still runs the scan pass
     return part, slot, send
+
+
+def hash_partition_cuda(keys: torch.Tensor, n_parts: int):
+    """keys (N,) int32, contiguous on a CUDA device → (part (N,) int32,
+    hist (n_parts,) int32)."""
+    name = "hash_partition"
+    _require(keys.is_cuda, "keys must be a CUDA tensor", name)
+    _require(keys.dtype == torch.int32 and keys.dim() == 1 and keys.is_contiguous(),
+             "want contiguous (N,) int32 keys", name)
+    _require(n_parts >= 1, "n_parts must be >= 1", name)
+    _require((n_parts + 1) * 4 <= SMEM_LIMIT, f"{n_parts + 1} bins exceed shared memory", name)
+    n = keys.shape[0]
+    _require(n < 2**31, "N must fit int32", name)
+    part = torch.empty_like(keys)
+    if n == 0:                      # nothing to compute: no launch, no count
+        return part, torch.zeros((n_parts,), dtype=torch.int32, device=keys.device)
+    hist = torch.empty((n_parts,), dtype=torch.int32, device=keys.device)
+    fn = _build.launcher("hash_partition_launch")
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    rc = fn(keys.data_ptr(), n, n_parts, part.data_ptr(), hist.data_ptr(), stream)
+    _build.launched(name, rc)
+    return part, hist

@@ -13,11 +13,6 @@ import torch
 
 from . import _build
 
-#: calls since the last reset that launched the kernel, per kernel (CUDA
-#: tensors with nonzero work only)
-counts_launches = 0
-pairs_launches = 0
-
 
 def _require(cond: bool, name: str, msg: str) -> None:
     if not cond:
@@ -41,7 +36,6 @@ def _check_pair(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
 def merge_join_counts_cuda(a_keys: torch.Tensor, b_keys: torch.Tensor):
     """a_keys (S, N), b_keys (S, M) int32, rows sorted ascending →
     (lower, upper) (S, N) int32."""
-    global counts_launches
     _check_pair(a_keys, b_keys, "merge_join_counts")
     s, n = a_keys.shape
     m = b_keys.shape[1]
@@ -54,15 +48,13 @@ def merge_join_counts_cuda(a_keys: torch.Tensor, b_keys: torch.Tensor):
     stream = torch.cuda.current_stream(a_keys.device).cuda_stream
     rc = fn(a_keys.data_ptr(), b_keys.data_ptr(), s, n, m,
             lower.data_ptr(), upper.data_ptr(), stream)
-    _build.check("merge_join_counts", rc)
-    counts_launches += 1
+    _build.launched("merge_join_counts", rc)
     return lower, upper
 
 
 def merge_join_pairs_cuda(lower: torch.Tensor, starts: torch.Tensor, cap_out: int):
     """lower, starts (S, N) int32 with N >= 1 → (a_idx, b_idx) (S, cap_out)
     int32 (see ``ref.merge_join_pairs_ref`` for the slot semantics)."""
-    global pairs_launches
     _check_pair(lower, starts, "merge_join_pairs")
     _require(lower.shape == starts.shape and starts.shape[1] >= 1, "merge_join_pairs",
              "want lower and starts of one shape (S, N), N >= 1")
@@ -77,6 +69,5 @@ def merge_join_pairs_cuda(lower: torch.Tensor, starts: torch.Tensor, cap_out: in
     stream = torch.cuda.current_stream(starts.device).cuda_stream
     rc = fn(lower.data_ptr(), starts.data_ptr(), s, n, cap_out,
             a_idx.data_ptr(), b_idx.data_ptr(), stream)
-    _build.check("merge_join_pairs", rc)
-    pairs_launches += 1
+    _build.launched("merge_join_pairs", rc)
     return a_idx, b_idx

@@ -1,5 +1,8 @@
-"""Public kernel entry points, batched over a leading segment axis.
+"""Public kernel entry points.
 
+The dataplane's ops take a leading segment axis; the kernel library's ops
+(``hash_partition``, ``flash_attention``, ``ssd_chunk``, ``fold64``) keep the
+layout and shape contract of the JAX package's ``repro.kernels.ops``.
 Dispatch is by the tensors' device alone: a CPU tensor runs the plain
 PyTorch version (``ref.py``), a CUDA tensor launches the hand-written kernel
 — or raises; there is no fallback from the kernel to the plain version.
@@ -9,9 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
 from . import hash_partition as _hp
 from . import merge_join as _mj
 from . import ref as _ref
+from . import ssd as _ssd
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -57,3 +62,58 @@ def hash_partition_pack(keys: torch.Tensor, counts: torch.Tensor, n_parts: int):
     return _hp.hash_partition_pack_cuda(
         keys.contiguous(), counts.to(torch.int32).contiguous(), n_parts
     )
+
+
+def fold64(keys: torch.Tensor) -> torch.Tensor:
+    """Fold int64 (or uint64) join keys to int32 lanes: the low 32 bits of
+    ``k ^ (k >> 32)`` with a logical shift, wrapped to int32."""
+    k = keys.view(torch.int64) if keys.dtype == torch.uint64 else keys.to(torch.int64)
+    return _ref.wrap_i32((k ^ ((k >> 32) & _ref.MASK32)) & _ref.MASK32)
+
+
+def hash_partition(keys: torch.Tensor, n_parts: int):
+    """keys (N,) int32 (int64 and uint64 keys are folded first) → (part (N,)
+    int32 partition id per key, hist (n_parts,) int32 global histogram)."""
+    if keys.dim() != 1:
+        raise ValueError(f"hash_partition: want keys (N,), got {tuple(keys.shape)}")
+    if keys.dtype in (torch.int64, torch.uint64):
+        keys = fold64(keys)
+    if keys.dtype != torch.int32:
+        raise ValueError(f"hash_partition: want int32 or 64-bit keys, got {keys.dtype}")
+    if n_parts < 1:
+        raise ValueError("hash_partition: n_parts must be >= 1")
+    if _on_cpu(keys):
+        return _ref.hash_partition_ref(keys, n_parts)
+    return _hp.hash_partition_cuda(keys.contiguous(), n_parts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    bq: int = 128, bk: int = 128) -> torch.Tensor:
+    """Online-softmax attention: q (BH, Sq, D), k/v (BH, Sk, D) → (BH, Sq, D).
+
+    ``bq``/``bk`` are the reference op's block sizes, taken as min(bq, Sq)
+    and min(bk, Sk); as there, Sq and Sk must be multiples of them (Sq = 100
+    passes, Sq = 200 raises).  The kernel tiles by its own sizes."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError("flash_attention: want q (BH, Sq, D) and k/v (BH, Sk, D)")
+    sq, sk = q.shape[1], k.shape[1]
+    bq, bk = min(bq, sq), min(bk, sk)
+    if bq < 1 or bk < 1 or sq % bq or sk % bk:
+        raise ValueError(f"flash_attention: Sq={sq}, Sk={sk} are not multiples of the "
+                         f"blocks bq={bq}, bk={bk}")
+    if _on_cpu(q, k, v):
+        return _ref.flash_attention_ref(q, k, v, causal=causal)
+    return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: torch.Tensor,
+              c_ssm: torch.Tensor, chunk: int = 64):
+    """Mamba-2 SSD over chunks: x (BH, S, P), dt (BH, S), a (BH,), b/c
+    (BH, S, N), float32, S % chunk == 0 → (y (BH, S, P), final_state
+    (BH, P, N))."""
+    if x.dim() != 3 or chunk < 1 or x.shape[1] % chunk:
+        raise ValueError(f"ssd_chunk: want x (BH, S, P) with S a multiple of chunk={chunk}, "
+                         f"got {tuple(x.shape)}")
+    if _on_cpu(x, dt, a, b_ssm, c_ssm):
+        return _ref.ssd_chunked_ref(x, dt, a, b_ssm, c_ssm, chunk)
+    return _ssd.ssd_chunk_cuda(*(t.contiguous() for t in (x, dt, a, b_ssm, c_ssm)), chunk)

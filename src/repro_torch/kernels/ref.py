@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the dataplane kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-Each function is the semantics its CUDA kernel must reproduce bit for bit,
-batched over a leading segment axis (one segment per (stage, machine) pair).
-The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each kernel
-against its plain version on the card.
+The dataplane kernels' versions are the semantics their CUDA kernels must
+reproduce bit for bit, batched over a leading segment axis (one segment per
+(stage, machine) pair); the float kernels' versions (attention, SSD) are the
+values their kernels must reproduce within a stated tolerance.  The wrappers
+run these on CPU tensors; ``chip_smoke.py`` holds each kernel against its
+plain version on the card.
 
 uint32 arithmetic: PyTorch on the CPU has no ``>>`` or ``%`` for uint32, so
 the hashes compute in int64 masked to 32 bits, and every 32-bit multiplier is
@@ -106,3 +108,90 @@ def merge_join_pairs_ref(lower: torch.Tensor, starts: torch.Tensor, cap_out: int
     a_idx = k.clamp(0, n - 1)
     b_idx = lower.to(torch.int64).gather(1, a_idx) + (t - starts.to(torch.int64).gather(1, a_idx))
     return a_idx.to(torch.int32), b_idx.to(torch.int32)
+
+
+def hash_partition_ref(keys: torch.Tensor, n_parts: int):
+    """keys (N,) int32, any N → (part (N,) int32 partition id per key, hist
+    (n_parts,) int32 global histogram of the ids)."""
+    part = (hash_u32_ref(keys) % n_parts).to(torch.int32)
+    hist = torch.zeros((n_parts,), dtype=torch.int64, device=keys.device)
+    hist.scatter_add_(0, part.to(torch.int64), torch.ones_like(part, dtype=torch.int64))
+    return part, hist.to(torch.int32)
+
+
+def attention_weights(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """fp32 softmax weights (BH, Sq, Sk) of q (BH, Sq, D) against k (BH, Sk, D):
+    scores at scale D^-0.5; the causal mask keeps ``k_pos <= q_pos`` counted
+    from position 0 (also when Sq != Sk), masked scores are -1e30."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (d ** -0.5)
+    if causal:
+        iq = torch.arange(s.shape[1], device=s.device)[:, None]
+        ik = torch.arange(s.shape[2], device=s.device)[None, :]
+        s = torch.where(ik <= iq, s, torch.full_like(s, -1e30))
+    return torch.softmax(s, dim=-1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention: q (BH, Sq, D), k/v (BH, Sk, D) → (BH, Sq, D)
+    in v's dtype.  The weights of :func:`attention_weights` are rounded to v's
+    dtype before the fp32-accumulated P·V."""
+    w = attention_weights(q, k, causal)
+    return torch.einsum("bqk,bkd->bqd", w.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def flash_attention_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   out: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """The |Δ| (BH, Sq, D), fp32, by which a bfloat16 attention kernel may
+    differ from :func:`flash_attention_ref`'s output ``out`` on these inputs.
+
+    bf16's unit roundoff is 2^-8.  Both sides round the output once: 2^-7·|out|.
+    Both round each weight once before P·V (the plain version its normalised
+    softmax, a kernel its running exp(s - m)): at worst 2^-7·Σ_j w_j|v_j|;
+    as independent bounded errors, Hoeffding puts their sum above
+    2^-4·sqrt(Σ_j w_j² v_j²) with probability below 2e^-32.  The weights'
+    term is the smaller of the two (the first wherever a row sees fewer than
+    64 keys)."""
+    w = attention_weights(q, k, causal)
+    vf = v.float()
+    worst = torch.einsum("bqk,bkd->bqd", w, vf.abs())
+    spread = torch.einsum("bqk,bkd->bqd", w * w, vf * vf).sqrt()
+    return 2.0 ** -7 * out.float().abs() + torch.minimum(2.0 ** -7 * worst, 2.0 ** -4 * spread)
+
+
+def ssd_chunk_ref(x, dt, a, b_ssm, c_ssm, prev_state):
+    """One SSD chunk for every (batch·head): x (BH, Q, P), dt (BH, Q), a (BH,),
+    b/c (BH, Q, N), prev_state (BH, P, N) → (y (BH, Q, P), new_state
+    (BH, P, N)).  fp32 math; the decay is masked before ``exp`` (for i < j,
+    cum_i − cum_j > 0 and its exp may be inf)."""
+    q = x.shape[1]
+    cum = torch.cumsum(dt * a[:, None], dim=1)                      # (BH, Q)
+    li = cum[:, :, None] - cum[:, None, :]
+    iot = torch.arange(q, device=x.device)
+    mask = iot[:, None] >= iot[None, :]
+    decay = torch.exp(torch.where(mask, li, torch.full_like(li, -torch.inf)))
+    cb = c_ssm @ b_ssm.transpose(1, 2)                              # (BH, Q, Q)
+    w = cb * decay * dt[:, None, :]
+    y_diag = w @ x                                                  # (BH, Q, P)
+    y_off = (torch.exp(cum)[:, :, None] * c_ssm) @ prev_state.transpose(1, 2)
+    decay_tail = torch.exp(cum[:, -1:] - cum)                       # (BH, Q)
+    s_new = x.transpose(1, 2) @ (b_ssm * (decay_tail * dt)[:, :, None])   # (BH, P, N)
+    new_state = torch.exp(cum[:, -1])[:, None, None] * prev_state + s_new
+    return y_diag + y_off, new_state
+
+
+def ssd_chunked_ref(x, dt, a, b_ssm, c_ssm, chunk: int):
+    """SSD over a whole sequence, chunk after chunk: x (BH, S, P), dt (BH, S),
+    a (BH,), b/c (BH, S, N), S % chunk == 0 → (y (BH, S, P), final_state
+    (BH, P, N)), fp32; the state starts at zero."""
+    bh, s, p = x.shape
+    state = torch.zeros((bh, p, b_ssm.shape[-1]), dtype=torch.float32, device=x.device)
+    ys = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, t0 + chunk)
+        y, state = ssd_chunk_ref(x[:, sl], dt[:, sl], a, b_ssm[:, sl], c_ssm[:, sl], state)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) if ys else torch.zeros((bh, 0, p), dtype=torch.float32,
+                                                    device=x.device)
+    return y, state

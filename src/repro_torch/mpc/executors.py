@@ -25,6 +25,7 @@ import torch
 
 from ..core.query import Attr
 from ..core.taxonomy import heavy_masks, residual_relations
+from ..device import resolve_device
 from .faults import DeadlineExceededError, RetryExhaustedError
 from .program import (
     BroadcastSizes,
@@ -40,17 +41,6 @@ from .program import (
     StageGeometry,
     stage_geometry,
 )
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller names
-    another; raises when CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain PyTorch path"
-        )
-    return dev
 
 
 def to_host(x) -> np.ndarray:

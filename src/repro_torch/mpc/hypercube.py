@@ -18,6 +18,7 @@ from scipy.optimize import linprog
 
 from ..core.hypergraph import Hypergraph
 from ..core.query import Attr
+from ..device import resolve_device
 
 
 def uniform_lp_shares(g: Hypergraph, p: int) -> Dict[Attr, int]:
@@ -87,12 +88,13 @@ def hc_cell_contribs(
 
 
 def hc_cells_dev(fixed_coords, free_contribs: Sequence[int], n: int,
-                 device="cpu") -> torch.Tensor:
+                 device=None) -> torch.Tensor:
     """Torch cell enumeration from already-fixed coordinates: ``fixed_coords``
     is a sequence of ((n,) coordinate tensor, flat stride) pairs,
     ``free_contribs`` the flat ids of the free-dimension combos.  Returns
-    (n, n_free) int32 flat cells on ``device``, equal to
-    `HyperCubeGrid.cells_for`."""
+    (n, n_free) int32 flat cells on ``device`` (the card unless the caller
+    names another), equal to `HyperCubeGrid.cells_for`."""
+    device = resolve_device(device)
     flat = torch.zeros((n,), dtype=torch.int32, device=device)
     for coord, stride in fixed_coords:
         flat = flat + coord.to(torch.int32) * stride
@@ -136,10 +138,12 @@ class HyperCubeGrid:
                 flat += combos[:, ai].reshape(1, -1) * stride
         return flat
 
-    def cells_for_dev(self, fixed: Dict[Attr, torch.Tensor], device="cpu") -> torch.Tensor:
+    def cells_for_dev(self, fixed: Dict[Attr, torch.Tensor], device=None) -> torch.Tensor:
         """Torch twin of `cells_for`: the per-attribute coordinates in
         ``fixed`` are (n,) tensors.  Returns (n, n_free_combos) int32 flat
-        cell ids equal to the numpy version."""
+        cell ids equal to the numpy version, on the coordinates' device, or
+        with no coordinates on ``device`` (the card unless the caller names
+        another)."""
         strides, contribs = hc_cell_contribs(self.attrs, self.dims, tuple(fixed))
         n = next(iter(fixed.values())).shape[0] if fixed else 1
         if fixed:

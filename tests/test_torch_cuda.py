@@ -1,4 +1,6 @@
-"""The hand-written CUDA kernels ≡ their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels ≡ their plain PyTorch versions, on the card
+(the integer kernels bit for bit, attention and the SSD scan within the
+tolerances that chip_smoke.py states).
 
 Marked ``cuda``: without a CUDA card every test here skips (the kernels
 have no CPU form).  The file imports neither jax nor the JAX package, so it
@@ -11,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import hash_partition as thp
+from repro_torch.kernels import _build
 from repro_torch.kernels import merge_join as tmj
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.hash_partition import hash_partition_cuda, hash_partition_pack_cuda
+from repro_torch.kernels.ssd import ssd_chunk_cuda
 from repro_torch.kernels import ref as tref
 
 INT32_MAX = 2**31 - 1
@@ -40,7 +45,7 @@ def test_hash_partition_pack_kernel_on_card(cuda_device, s, n, parts):
     keys = torch.from_numpy(rng.integers(-(2**31), 2**31, (s, n)).astype(np.int32))
     counts = torch.from_numpy(rng.integers(0, n + 1, s).astype(np.int32))
     k, c = keys.to(cuda_device), counts.to(cuda_device)
-    got = thp.hash_partition_pack_cuda(k, c, parts)
+    got = hash_partition_pack_cuda(k, c, parts)
     for g, w in zip(got, tref.hash_partition_pack_ref(keys, counts, parts)):
         assert torch.equal(g.cpu(), w)
 
@@ -66,8 +71,8 @@ def test_merge_join_kernels_on_card(cuda_device, s, n, m, dom):
 def test_launch_counters_skip_calls_with_no_work(cuda_device):
     """A wrapper counts only calls that launched its kernel."""
     i32 = dict(dtype=torch.int32, device=cuda_device)
-    before = (thp.launches, tmj.counts_launches, tmj.pairs_launches)
-    part, slot, send = thp.hash_partition_pack_cuda(torch.empty((0, 64), **i32),
+    before = dict(_build.launches)
+    part, slot, send = hash_partition_pack_cuda(torch.empty((0, 64), **i32),
                                                     torch.empty((0,), **i32), 8)
     assert part.shape == (0, 64) and send.shape == (0, 8)
     lower, _ = tmj.merge_join_counts_cuda(torch.empty((4, 0), **i32),
@@ -76,9 +81,75 @@ def test_launch_counters_skip_calls_with_no_work(cuda_device):
     a_idx, _ = tmj.merge_join_pairs_cuda(torch.zeros((4, 16), **i32),
                                          torch.zeros((4, 16), **i32), 0)
     assert a_idx.shape == (4, 0)
-    assert (thp.launches, tmj.counts_launches, tmj.pairs_launches) == before
+    assert dict(_build.launches) == before
     # N = 0 with segments still launches the scan pass: zero send counts
-    _, _, send = thp.hash_partition_pack_cuda(torch.empty((3, 0), **i32),
+    _, _, send = hash_partition_pack_cuda(torch.empty((3, 0), **i32),
                                               torch.zeros((3,), **i32), 8)
-    assert thp.launches == before[0] + 1
+    assert _build.launches["hash_partition_pack"] == before.get("hash_partition_pack", 0) + 1
     assert torch.equal(send.cpu(), torch.zeros((3, 8), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,parts", [(1, 1), (3001, 7), (1 << 20, 64)])
+def test_hash_partition_kernel_on_card(cuda_device, n, parts):
+    rng = np.random.default_rng(n + parts)
+    keys = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32))
+    got = hash_partition_cuda(keys.to(cuda_device), parts)
+    for g, w in zip(got, tref.hash_partition_ref(keys, parts)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,d,causal", [(100, 100, 80, True), (128, 256, 64, True),
+                                            (384, 384, 128, False), (256, 256, 32, True),
+                                            (64, 192, 16, False)])
+def test_flash_attention_kernel_on_card(cuda_device, sq, sk, d, causal, dtype):
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, s, d), dtype=np.float32))
+               .to(cuda_device).to(dtype) for s in (sq, sk, sk))
+    got = flash_attention_cuda(q, k, v, causal)
+    want = tref.flash_attention_ref(q, k, v, causal)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        limit = tref.flash_attention_bf16_tolerance(q, k, v, want, causal)
+        assert bool(((got.float() - want.float()).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,p,n,chunk", [(1, 256, 64, 128, 256), (3, 512, 16, 32, 64),
+                                            (2, 64, 64, 128, 16)])
+def test_ssd_chunk_kernel_on_card(cuda_device, bh, s, p, n, chunk):
+    rng = np.random.default_rng(bh * s + p)
+    arrays = (rng.standard_normal((bh, s, p), dtype=np.float32),
+              rng.uniform(0.01, 0.2, (bh, s)).astype(np.float32),
+              -rng.uniform(0.5, 2.0, bh).astype(np.float32),
+              rng.standard_normal((bh, s, n), dtype=np.float32),
+              rng.standard_normal((bh, s, n), dtype=np.float32))
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    for g, w in zip(ssd_chunk_cuda(*args, chunk), tref.ssd_chunked_ref(*args, chunk)):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_refuses_what_shared_memory_cannot_hold(cuda_device):
+    """N = 4096 needs a 4096 x 68 fp32 state in shared memory, past what a
+    block can have: the launcher's error raises, and the next launch is
+    unaffected by it."""
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    big = (torch.zeros((1, 16, 64), **f32), torch.full((1, 16), 0.1, **f32),
+           torch.full((1,), -1.0, **f32), torch.zeros((1, 16, 4096), **f32),
+           torch.zeros((1, 16, 4096), **f32))
+    before = _build.launches["ssd_chunk"]
+    with pytest.raises(RuntimeError, match="ssd_chunk"):
+        ssd_chunk_cuda(*big, 16)
+    assert _build.launches["ssd_chunk"] == before
+    small = [t[..., :32] if t.dim() == 3 else t for t in big]
+    small[0] = torch.ones((1, 16, 32), **f32)
+    y, state = ssd_chunk_cuda(*(t.contiguous() for t in small), 16)
+    torch.cuda.synchronize()
+    assert _build.launches["ssd_chunk"] == before + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())

@@ -303,3 +303,25 @@ def test_grid_coordinate_functions_match_reference_numpy():
     np.testing.assert_array_equal(hc.cells_for(fixed), want)
     got = hc.cells_for_dev({k: t(v.astype(np.int32)) for k, v in fixed.items()})
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_hypercube_cell_twins_run_where_the_caller_asks():
+    """Asked for the CPU, the torch twins give the numpy cells there; asked
+    nothing, they run on the card (and raise where there is none)."""
+    from repro.mpc.hypercube import HyperCubeGrid as JCube
+    from repro_torch.mpc.hypercube import HyperCubeGrid, hc_cell_contribs, hc_cells_dev
+
+    shares = {"A": 3, "B": 2, "C": 4}
+    hc, jhc = HyperCubeGrid(("A", "B", "C"), shares), JCube(("A", "B", "C"), shares)
+    got = hc.cells_for_dev({}, device="cpu")
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), jhc.cells_for({}))
+    coords = np.array([1, 0, 1, 1])
+    strides, contribs = hc_cell_contribs(hc.attrs, hc.dims, ("B",))
+    got = hc_cells_dev([(t(coords.astype(np.int32)), strides["B"])], contribs, 4, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), jhc.cells_for({"B": coords}))
+    if torch.cuda.is_available():
+        assert hc.cells_for_dev({}).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            hc.cells_for_dev({})

@@ -19,8 +19,11 @@ from repro.dataplane.exchange import salt_offset as jax_salt_offset
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.dataplane.exchange import salt_offset
-from repro_torch.kernels import hash_partition as thp
+from repro_torch.kernels import _build
 from repro_torch.kernels import merge_join as tmj
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.hash_partition import hash_partition_cuda, hash_partition_pack_cuda
+from repro_torch.kernels.ssd import ssd_chunk_cuda
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -188,7 +191,7 @@ def test_ops_on_cpu_tensors_run_the_plain_versions():
     rng = np.random.default_rng(1)
     lower, starts, _ = pairs_inputs(rng, 2, 64, 64, 10)
     lo, st = torch.from_numpy(lower), torch.from_numpy(starts)
-    before = (thp.launches, tmj.counts_launches, tmj.pairs_launches)
+    before = dict(_build.launches)
     for g, w in zip(tops.merge_join_pairs(lo, st, 500), tref.merge_join_pairs_ref(lo, st, 500)):
         assert torch.equal(g, w)
     a = torch.from_numpy(sorted_segments(rng, 2, 50, 9, [50, 20]))
@@ -198,15 +201,22 @@ def test_ops_on_cpu_tensors_run_the_plain_versions():
     for g, w in zip(tops.hash_partition_pack(keys, counts, 4),
                     tref.hash_partition_pack_ref(keys, counts, 4)):
         assert torch.equal(g, w)
-    assert (thp.launches, tmj.counts_launches, tmj.pairs_launches) == before
+    assert dict(_build.launches) == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros((2, 8), dtype=torch.int32)
     c = torch.zeros((2,), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        thp.hash_partition_pack_cuda(x, c, 4)
+        hash_partition_pack_cuda(x, c, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tmj.merge_join_counts_cuda(x, x)
     with pytest.raises(ValueError, match="CUDA"):
         tmj.merge_join_pairs_cuda(x, x, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_partition_cuda(x[0], 4)
+    f = torch.zeros((2, 8, 16), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(f, f, f)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk_cuda(f, f[:, :, 0].contiguous(), f[:, 0, 0].contiguous(), f, f, 4)
