@@ -4,11 +4,15 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
   1. environment: card name and power limit, torch / CUDA / nvcc versions,
-     and the build of every hand-written kernel from ``kernels/csrc``;
+     and the build of every hand-written kernel from ``kernels/csrc``, with
+     ptxas's registers, shared memory and spills per kernel and a check of
+     the bf16 attention's SASS for tensor-core instructions (HMMA/HGMMA);
   2. every kernel against its plain PyTorch version on the card on
      edge-case inputs: the integer kernels bit for bit (ragged lengths,
      empty and full counts, all-sentinel segments, duplicated keys, keys
-     near +-2^31); flash_attention at ragged and Sq != Sk shapes, causal and
+     near +-2^31; for merge_join_counts also runs of one key across many
+     merge stretches, N = 1 and M = 1 against 2^20 keys);
+     flash_attention at ragged and Sq != Sk shapes, BH = 1, causal and
      not, head dims 16-128, within 1e-4 (f32) and, in bf16, within the
      rounding error of the output and the weights
      (``ref.flash_attention_bf16_tolerance``); ssd_chunk at chunks
@@ -31,7 +35,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      outputs checked against the plain versions (and the bf16 attention
      limit against a variant with a key tile dropped, which it must catch in
      most rows), then each timed beside its plain version, its bound and
-     (attention) SDPA, with TF32 off;
+     (attention) SDPA, with TF32 off; and bf16 attention at a second head
+     dim (deepseek-moe-16b prefill, D = 128) beside SDPA, in one log line;
   then the ``kernels`` JSON line (six rows).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -76,12 +81,19 @@ KERNELS = {
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:62"),
 }
 JOIN_KERNELS = ("hash_partition_pack", "merge_join_counts", "merge_join_pairs")
+# the kernels redesigned for Hopper, by source stem: phase 1 logs their
+# registers, shared memory and spills
+REDESIGNED = {"flash_attention": "flash_fwd_tc", "merge_join": "mj_counts"}
 LIBRARY_KERNELS = ("hash_partition", "flash_attention", "ssd_chunk")
 # phase 7's widths: h2o-danube-1.8b prefill (src/repro/configs/h2o_danube_1_8b.py;
 # its 4096-token window equals full causal attention at 4096 tokens),
 # mamba2-780m (src/repro/configs/mamba2_780m.py: d_inner 3072 = 48 heads of
 # 64, d_state 128, chunk 256), and the triangle-2M table size
 ATTN_WIDTHS = dict(batch=2, heads=32, kv_heads=8, seq=4096, head_dim=80)
+# a second width for bf16 attention, whose tile shapes depend on D:
+# deepseek-moe-16b (src/repro/configs/deepseek_moe_16b.py: 16 heads, MHA,
+# head_dim 128), one causal prefill of 4096 tokens, batch 2
+ATTN_WIDTHS_2 = dict(batch=2, heads=16, seq=4096, head_dim=128)
 SSD_WIDTHS = dict(batch=4, heads=48, seq=4096, chunk=256, headdim=64, d_state=128)
 HASH_KEYS, HASH_PARTS = 2_000_000, 64
 
@@ -236,8 +248,10 @@ class InputCapture:
 def time_rounds(torch, kern, plain, library):
     """Five rounds of ``cuda_ms`` (10 calls; the plain version 3), alternating
     which of kernel / plain / library runs first → (medians by name, the
-    rounds' ranges as text)."""
-    fns = {"kernel": (kern, 10), "plain": (plain, 3)}
+    rounds' ranges as text).  ``plain`` or ``library`` may be None."""
+    fns = {"kernel": (kern, 10)}
+    if plain is not None:
+        fns["plain"] = (plain, 3)
     if library is not None:
         fns["library"] = (library, 10)
     times = {k: [] for k in fns}
@@ -287,12 +301,82 @@ def phase_env(torch) -> dict:
     t0 = time.perf_counter()
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
-    for stem, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
-                log(f"[build] {stem}: {line.strip()}")
     log(f"[env] kernels built in {build_s:.2f} s ({', '.join(sorted(logs))})")
+    for stem, text in sorted(logs.items()):
+        entries = ptxas_entries(text)
+        for name, info in entries.items():
+            log(f"[build] {stem}: {name}: {info}")
+        # the redesigned kernels must show their registers, shared memory
+        # and spills (a library that was already built has no log)
+        want = REDESIGNED.get(stem)
+        if text and want and not any(want in name for name in entries):
+            raise AssertionError(f"{stem}: no ptxas report for {want}")
+    check_tensor_core_sass(_build)
     return {"smi": smi, "build_s": build_s}
+
+
+def demangle(names):
+    """C++ kernel names, demangled by c++filt where the machine has it and
+    cut to the function and its template arguments (``flash_fwd_tc<80>``)."""
+    import shutil
+
+    if not names or shutil.which("c++filt") is None:
+        return list(names)
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    if len(out) != len(names):
+        return list(names)
+    return [n.replace("(anonymous namespace)::", "").split("(")[0].split(" ")[-1] for n in out]
+
+
+def ptxas_entries(text: str) -> dict:
+    """``nvcc -Xptxas -v`` output → {kernel: "R registers, S bytes static
+    smem, spill stores/loads"} in the order ptxas reports them."""
+    import re
+
+    found, name = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name = hit.group(1)
+            found[name] = {}
+            continue
+        if name is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if hit:
+            found[name]["spills"] = f"spill stores {hit.group(1)} B, loads {hit.group(2)} B"
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[name]["regs"] = (f"{hit.group(1)} registers, "
+                                   f"{smem.group(1) if smem else 0} B static smem")
+    names = demangle(list(found))
+    return {pretty: ", ".join(v for v in (found[raw].get("regs"), found[raw].get("spills")) if v)
+            for raw, pretty in zip(found, names)}
+
+
+def check_tensor_core_sass(build) -> None:
+    """The bf16 attention instances run on the tensor cores: their SASS (by
+    ``cuobjdump -sass``, beside nvcc) holds HMMA or HGMMA instructions.
+    Raises if a ``flash_fwd_tc`` instance has neither."""
+    import re
+
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build._lib_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    names = demangle([f.split("\n", 1)[0].strip() for f in funcs])
+    counts = {}
+    for name, body in zip(names, funcs):
+        counts[name] = {op: len(re.findall(rf"\b{op}\.", body)) for op in ("HMMA", "HGMMA")}
+        log(f"[build] SASS {name}: {counts[name]['HMMA']} HMMA, {counts[name]['HGMMA']} HGMMA")
+    tc = {n: c for n, c in counts.items() if "flash_fwd_tc" in n}
+    if len(tc) != len(HEAD_DIMS) or any(c["HMMA"] + c["HGMMA"] == 0 for c in tc.values()):
+        raise AssertionError(f"bf16 flash_attention: tensor-core instructions missing in its "
+                             f"SASS: {tc}")
 
 
 def _sorted_rows(rng, s, n, dom, fill, sentinel_rows=()):
@@ -304,6 +388,28 @@ def _sorted_rows(rng, s, n, dom, fill, sentinel_rows=()):
     for i in sentinel_rows:
         x[i] = INT32_MAX
     return x.astype(np.int32)
+
+
+def merge_join_hazards(rng):
+    """(name, a, b) int32 sorted rows at the merge-path search's hazards:
+    runs of one key far longer than a block's stretch of the merge (2816
+    elements), N = 1 and M = 1 against 2^20, rows of sentinels only, keys
+    at -2^31 and 2^31 - 1."""
+    edge = np.array([-(2**31), -(2**31) + 1, INT32_MAX - 1, INT32_MAX])
+    srt = lambda x: np.sort(x, axis=1).astype(np.int32)
+    a_sent = srt(rng.integers(0, 50, (4, 3000)))
+    b_sent = srt(rng.integers(0, 50, (4, 5000)))
+    a_sent[:3] = INT32_MAX          # rows 0-1 both sides, row 2 A, row 3 B all sentinels
+    b_sent[:2] = INT32_MAX
+    b_sent[3] = INT32_MAX
+    return [
+        ("3-key runs", srt(rng.integers(-1, 4, (64, 4096))),
+         srt(rng.integers(0, 3, (64, 1 << 20)))),
+        ("N=1", srt(rng.integers(0, 1000, (8, 1))), srt(rng.integers(0, 1000, (8, 1 << 20)))),
+        ("M=1", srt(rng.integers(0, 1000, (8, 1 << 20))), srt(rng.integers(0, 1000, (8, 1)))),
+        ("all-sentinel rows", a_sent, b_sent),
+        ("keys at +-2^31", srt(rng.choice(edge, (16, 5000))), srt(rng.choice(edge, (16, 7000)))),
+    ]
 
 
 def phase_kernels(torch, dev) -> None:
@@ -350,6 +456,13 @@ def phase_kernels(torch, dev) -> None:
         torch.cuda.synchronize()
         same(f"merge_join_counts S={s} N={n} M={m}", got, ref.merge_join_counts_ref(a, b))
         log(f"[kernels] merge_join_counts S={s} N={n} M={m} dom={dom}: equal")
+    for name, a, b in merge_join_hazards(rng):
+        a, b = t(a), t(b)
+        got = mj.merge_join_counts_cuda(a, b)
+        torch.cuda.synchronize()
+        same(f"merge_join_counts {name}", got, ref.merge_join_counts_ref(a, b))
+        log(f"[kernels] merge_join_counts {name} S={a.shape[0]} N={a.shape[1]} "
+            f"M={b.shape[1]}: equal")
 
     # merge_join_pairs: (S, N, M, domain, cap_out) from real match ranges
     for s, n, m, dom, cap in [(4096, 256, 256, 20, 1024), (64, 1 << 14, 1 << 14, 2000, 1 << 18),
@@ -651,7 +764,7 @@ def ssd_inputs(torch, rng, batch, heads, s, p, n, dev):
 def phase_library_kernels(torch, dev) -> None:
     """Phase 2, continued: the library kernels on edge cases."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
     from repro_torch.kernels.hash_partition import hash_partition_cuda
     from repro_torch.kernels.ssd import ssd_chunk_cuda
 
@@ -668,11 +781,14 @@ def phase_library_kernels(torch, dev) -> None:
                     raise AssertionError(f"hash_partition N={n} P={parts}: kernel differs")
         log(f"[kernels] hash_partition N={n} P=1,7,64: equal")
 
-    for sq, sk in ((100, 100), (128, 256), (384, 384)):
-        for d in (16, 32, 64, 80, 128):
+    # ragged Sq and Sk (not multiples of the 64-row tiles), Sq != Sk under
+    # the causal mask, BH = 1, every head dim
+    for bh, sq, sk in ((2, 100, 100), (1, 200, 200), (2, 64, 100), (2, 128, 256),
+                       (2, 256, 128), (1, 384, 384), (1, 1, 1)):
+        for d in HEAD_DIMS:
             found = {}
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = (torch.from_numpy(rng.standard_normal((2, s, d), dtype=np.float32))
+                q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d), dtype=np.float32))
                            .to(dev).to(dtype) for s in (sq, sk, sk))
                 for causal in (True, False):
                     got = flash_attention_cuda(q, k, v, causal)
@@ -680,7 +796,8 @@ def phase_library_kernels(torch, dev) -> None:
                     res = attention_close(torch, got, q, k, v, causal)
                     err, used = found.get(dtype, (0.0, 0.0))
                     found[dtype] = (max(err, res["max_abs_err"]), max(used, res["limit_used"]))
-            log(f"[kernels] flash_attention Sq={sq} Sk={sk} D={d} causal/full: max |err| "
+            log(f"[kernels] flash_attention BH={bh} Sq={sq} Sk={sk} D={d} causal/full: "
+                "max |err| "
                 + ", ".join(f"{str(t)[6:]} {e:.3g} ({u:.3f} of the limit)"
                             for t, (e, u) in found.items()))
 
@@ -814,7 +931,35 @@ def phase_library(torch, dev) -> list:
             f"medians of 5 rounds, range ms: {spread}")
         rows.append(row)
         torch.cuda.empty_cache()
+    attention_second_width(torch, dev, rng)
     return rows
+
+
+def attention_second_width(torch, dev, rng) -> None:
+    """bf16 flash_attention at ``ATTN_WIDTHS_2``, held to the bf16 limit and
+    timed beside SDPA (one log line; not a row of the ``kernels`` line)."""
+    from repro_torch.kernels import ops
+
+    batch, heads, seq, hd = (ATTN_WIDTHS_2[k] for k in ("batch", "heads", "seq", "head_dim"))
+    q, k, v = (torch.from_numpy(rng.standard_normal((batch * heads, seq, hd), dtype=np.float32))
+               .to(dev).to(torch.bfloat16) for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check = attention_close(torch, out, q, k, v, True)
+    del out
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    med, spread = time_rounds(
+        torch, lambda: ops.flash_attention(q, k, v, causal=True), None,
+        lambda: sdpa(*(x.view(batch, heads, seq, hd) for x in (q, k, v)), is_causal=True))
+    flops = 4 * hd * batch * heads * seq * (seq + 1) // 2
+    nbytes = 2 * 4 * q.numel()
+    bound_ms = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    log(f"[library] flash_attention at deepseek-moe-16b prefill BH={batch * heads} S={seq} "
+        f"D={hd} bf16 causal: kernel {med['kernel']:.4f} ms, SDPA {med['library']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({flops:.4g} FLOP); max |err| {check['max_abs_err']:.3g} "
+        f"({check['limit_used']:.3f} of the bf16 limit); medians of 5 rounds, range ms: "
+        f"{spread}")
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

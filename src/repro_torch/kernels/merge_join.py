@@ -19,8 +19,10 @@ def _require(cond: bool, name: str, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-#: one thread per output element, 256 to a block: the grid's x extent
-#: (< 2^31 blocks) bounds the elements of one launch
+#: the grid's x extent (< 2^31 blocks of 256 threads) bounds the elements
+#: of one launch: one thread per output slot for the pairs, one per 8 merge
+#: steps for the counts (whose launcher also refuses a grid past 2^31 - 1
+#: blocks, which the wrapper then raises)
 MAX_THREADS = 256 * (2**31 - 1)
 
 

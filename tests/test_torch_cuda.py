@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import merge_join as tmj
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
 from repro_torch.kernels.hash_partition import hash_partition_cuda, hash_partition_pack_cuda
 from repro_torch.kernels.ssd import ssd_chunk_cuda
 from repro_torch.kernels import ref as tref
@@ -67,6 +67,44 @@ def test_merge_join_kernels_on_card(cuda_device, s, n, m, dom):
         assert torch.equal(g.cpu(), w)
 
 
+def merge_join_edge_case(name):
+    """(a, b) int32 CPU tensors, rows sorted, for one named hazard of the
+    merge-path search."""
+    rng = np.random.default_rng(len(name))
+    lo32, hi32 = -(2**31), INT32_MAX
+    if name == "runs-across-stretches":      # 3 keys over 2^20: runs span many stretches
+        a = np.sort(rng.integers(-1, 4, (64, 4096)), axis=1)
+        b = np.sort(rng.integers(0, 3, (64, 1 << 20)), axis=1)
+    elif name == "n1":
+        a = rng.integers(0, 1000, (8, 1))
+        b = np.sort(rng.integers(0, 1000, (8, 1 << 20)), axis=1)
+    elif name == "m1":
+        a = np.sort(rng.integers(0, 1000, (8, 1 << 20)), axis=1)
+        b = rng.integers(0, 1000, (8, 1))
+    elif name == "all-sentinel":             # all sentinels: both rows 0-1, A in 2, B in 3
+        a = np.sort(rng.integers(0, 50, (4, 3000)), axis=1)
+        b = np.sort(rng.integers(0, 50, (4, 5000)), axis=1)
+        a[:3], b[:2], b[3] = INT32_MAX, INT32_MAX, INT32_MAX
+        a[3, 2000:] = INT32_MAX
+    else:                                    # "int32-extremes": keys at -2^31 and 2^31 - 1
+        edge = np.array([lo32, lo32 + 1, hi32 - 1, hi32])
+        a = np.sort(rng.choice(edge, (16, 5000)), axis=1)
+        b = np.sort(rng.choice(edge, (16, 7000)), axis=1)
+    return (torch.from_numpy(a.astype(np.int32)), torch.from_numpy(b.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["runs-across-stretches", "n1", "m1", "all-sentinel",
+                                  "int32-extremes"])
+def test_merge_join_counts_kernel_edge_cases_on_card(cuda_device, name):
+    a, b = merge_join_edge_case(name)
+    before = _build.launches["merge_join_counts"]
+    got = tmj.merge_join_counts_cuda(a.to(cuda_device), b.to(cuda_device))
+    assert _build.launches["merge_join_counts"] == before + 1
+    for g, w in zip(got, tref.merge_join_counts_ref(a, b)):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.cuda
 def test_launch_counters_skip_calls_with_no_work(cuda_device):
     """A wrapper counts only calls that launched its kernel."""
@@ -99,18 +137,27 @@ def test_hash_partition_kernel_on_card(cuda_device, n, parts):
         assert torch.equal(g.cpu(), w)
 
 
+#: (BH, Sq, Sk, D, causal): ragged Sq and Sk (not multiples of the 64-row
+#: tiles), Sq != Sk under the causal mask, BH = 1, and every head dim at
+#: each edge shape
+ATTENTION_SHAPES = (
+    [(3, 100, 100, 80, True), (3, 128, 256, 64, True), (3, 384, 384, 128, False),
+     (3, 256, 256, 32, True), (3, 64, 192, 16, False)]
+    + [(bh, sq, sk, d, causal) for bh, sq, sk, causal in
+       [(1, 64, 100, False), (2, 200, 200, True), (2, 128, 256, True), (2, 256, 128, True),
+        (1, 1, 1, True)] for d in HEAD_DIMS])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,sk,d,causal", [(100, 100, 80, True), (128, 256, 64, True),
-                                            (384, 384, 128, False), (256, 256, 32, True),
-                                            (64, 192, 16, False)])
-def test_flash_attention_kernel_on_card(cuda_device, sq, sk, d, causal, dtype):
-    rng = np.random.default_rng(sq + sk + d)
-    q, k, v = (torch.from_numpy(rng.standard_normal((3, s, d), dtype=np.float32))
+@pytest.mark.parametrize("bh,sq,sk,d,causal", ATTENTION_SHAPES)
+def test_flash_attention_kernel_on_card(cuda_device, bh, sq, sk, d, causal, dtype):
+    rng = np.random.default_rng(bh * 7 + sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d), dtype=np.float32))
                .to(cuda_device).to(dtype) for s in (sq, sk, sk))
     got = flash_attention_cuda(q, k, v, causal)
     want = tref.flash_attention_ref(q, k, v, causal)
-    assert got.dtype == dtype
+    assert got.shape == want.shape and got.dtype == dtype
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
