@@ -11,7 +11,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      edge-case inputs: the integer kernels bit for bit (ragged lengths,
      empty and full counts, all-sentinel segments, duplicated keys, keys
      near +-2^31; for merge_join_counts also runs of one key across many
-     merge stretches, N = 1 and M = 1 against 2^20 keys);
+     merge stretches, N = 1 and M = 1 against 2^20 keys; for
+     merge_join_pairs the main path's regime of zero-count keys and a
+     zero-count tail, total > cap_out, one key owning every slot, runs of
+     equal starts across stretches, N = 1, cap_out = 1, S = 4096; for
+     hash_partition_pack 1024 tiles of look-back with one partition and
+     with 64, N off a multiple of 1024, P = 1 and the largest P);
      flash_attention at ragged and Sq != Sk shapes, BH = 1, causal and
      not, head dims 16-128, within 1e-4 (f32) and, in bf16, within the
      rounding error of the output and the weights
@@ -28,7 +33,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      give byte-identical rows, counts, retries and retry logs;
   6. each join kernel timed on the largest inputs the main path (phases 3-5) gave
      it, beside its plain version, ``torch.searchsorted`` where it applies,
-     and its memory bound (medians of five alternating rounds);
+     and its memory bound (medians of five alternating rounds); for
+     merge_join_pairs and hash_partition_pack also the device time and
+     device operations per call (torch.profiler), for merge_join_pairs the
+     bytes its design moves, and one line of hash_partition_pack at
+     S=64, N=2^20, P=64 beside its bound;
   7. the kernel library at model widths: flash_attention at h2o-danube-1.8b
      prefill, ssd_chunk at mamba2-780m, hash_partition over 2M keys (and
      2M int64 keys through fold64), launches counted over one call each,
@@ -83,7 +92,8 @@ KERNELS = {
 JOIN_KERNELS = ("hash_partition_pack", "merge_join_counts", "merge_join_pairs")
 # the kernels redesigned for Hopper, by source stem: phase 1 logs their
 # registers, shared memory and spills
-REDESIGNED = {"flash_attention": "flash_fwd_tc", "merge_join": "mj_counts"}
+REDESIGNED = {"flash_attention": ["flash_fwd_tc"], "merge_join": ["mj_counts", "mj_pairs"],
+              "hash_partition": ["hp_pack"]}
 LIBRARY_KERNELS = ("hash_partition", "flash_attention", "ssd_chunk")
 # phase 7's widths: h2o-danube-1.8b prefill (src/repro/configs/h2o_danube_1_8b.py;
 # its 4096-token window equals full causal attention at 4096 tokens),
@@ -264,6 +274,27 @@ def time_rounds(torch, kern, plain, library):
     return med, spread
 
 
+def device_ms(torch, fn, reps: int = 10) -> tuple:
+    """(device ms per call, device operations per call, their names): the
+    kernels and memsets that torch.profiler records over ``reps`` calls,
+    after one warm-up call.  Unlike ``cuda_ms`` it leaves out the host's
+    enqueue time and the gaps between calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    n_ops = sum(e.count for e in events)
+    return busy_us / reps / 1e3, n_ops / reps, sorted({e.key[:40] for e in events})
+
+
 def cuda_ms(torch, fn, reps: int = 10) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
     events, after two warm-up calls)."""
@@ -308,9 +339,9 @@ def phase_env(torch) -> dict:
             log(f"[build] {stem}: {name}: {info}")
         # the redesigned kernels must show their registers, shared memory
         # and spills (a library that was already built has no log)
-        want = REDESIGNED.get(stem)
-        if text and want and not any(want in name for name in entries):
-            raise AssertionError(f"{stem}: no ptxas report for {want}")
+        for want in REDESIGNED.get(stem, []) if text else []:
+            if not any(want in name for name in entries):
+                raise AssertionError(f"{stem}: no ptxas report for {want}")
     check_tensor_core_sass(_build)
     return {"smi": smi, "build_s": build_s}
 
@@ -412,6 +443,69 @@ def merge_join_hazards(rng):
     ]
 
 
+def pairs_from_counts(rng, counts: np.ndarray):
+    """(lower, starts) int32 for per-key match counts (S, N): starts the
+    exclusive prefix sum, lower nondecreasing as a probe of sorted B gives."""
+    starts = np.cumsum(counts, axis=1) - counts
+    lower = np.cumsum(rng.integers(0, 3, counts.shape), axis=1) + starts
+    return lower.astype(np.int32), starts.astype(np.int32)
+
+
+def merge_join_pairs_hazards(rng):
+    """(name, lower, starts, cap_out) at the load-balancing search's hazards:
+    the main path's regime (90% zero-count keys, a 35% zero-count tail,
+    total < cap_out so slots alias the last key), total > cap_out (keys past
+    the last slot), one key owning all cap_out slots across many 2816-element
+    stretches, runs of equal starts longer than a stretch, N = 1, cap_out =
+    1, cap_out not a multiple of the stretch, S = 4096 with small N."""
+    def regime(s, n):
+        c = np.where(rng.random((s, n)) < 0.1, rng.geometric(0.7, (s, n)), 0)
+        c[:, int(0.65 * n):] = 0
+        return c
+
+    main = regime(64, 1 << 16)
+    over = rng.integers(0, 6, (16, 20000))
+    hub = np.zeros((8, 5000), np.int64)
+    hub[:, 1234] = 1 << 20
+    runs = np.zeros((16, 30000), np.int64)
+    runs[:, ::3001] = 5
+    return [
+        ("main-path regime", *pairs_from_counts(rng, main),
+         int(1.6 * main.sum(axis=1).max())),
+        ("total > cap_out", *pairs_from_counts(rng, over), int(over.sum(axis=1).min()) // 3),
+        ("hub key owns all slots", *pairs_from_counts(rng, hub), 1 << 20),
+        ("equal-start runs across stretches", *pairs_from_counts(rng, runs), 60),
+        ("N=1", *pairs_from_counts(rng, rng.integers(0, 9, (8, 1))), 1000),
+        ("cap_out=1", *pairs_from_counts(rng, rng.integers(0, 3, (8, 5000))), 1),
+        ("cap_out off the stretch", *pairs_from_counts(rng, regime(16, 40000)), 3 * 2816 + 17),
+        ("S=4096 small N", *pairs_from_counts(rng, rng.integers(0, 4, (4096, 16))), 64),
+    ]
+
+
+def hash_partition_pack_hazards(rng):
+    """(name, keys, counts, P) at the look-back's hazards: 1024 tiles of
+    look-back (N = 2^20) with every key in one partition and with 64
+    partitions, N off a multiple of 1024 and N = 1, counts of 0 and N in one
+    batch, P = 1 and the largest P the wrapper takes, one tile per segment
+    over 4096 segments."""
+    from repro_torch.kernels.hash_partition import MAX_PARTS as p_max
+
+    keys = lambda s, n: rng.integers(-(2**31), 2**31, (s, n)).astype(np.int32)
+    full = lambda s, n: np.full(s, n, np.int32)
+    mixed = lambda s, n: np.array([0, n] * (s // 2), np.int32)
+    return [
+        ("N=2^20 one partition", np.full((8, 1 << 20), 12345, np.int32), full(8, 1 << 20), 64),
+        ("N=2^20 64 partitions", keys(8, 1 << 20), rng.integers(0, (1 << 20) + 1, 8)
+         .astype(np.int32), 64),
+        ("N off 1024", keys(6, 5003), mixed(6, 5003), 16),
+        ("N=1", keys(4, 1), mixed(4, 1), 5),
+        ("counts 0 and N", keys(8, 4096), mixed(8, 4096), 64),
+        ("P=1", keys(4, 3000), full(4, 3000), 1),
+        (f"P={p_max}", keys(4, 9000), rng.integers(0, 9001, 4).astype(np.int32), p_max),
+        ("S=4096 one tile", keys(4096, 1024), rng.integers(0, 1025, 4096).astype(np.int32), 64),
+    ]
+
+
 def phase_kernels(torch, dev) -> None:
     from repro_torch.kernels import ref
 
@@ -482,6 +576,20 @@ def phase_kernels(torch, dev) -> None:
              ref.merge_join_pairs_ref(lower, starts, cap))
         log(f"[kernels] merge_join_pairs S={s} N={n} cap={cap} total_max="
             f"{int(cnt.sum(dim=1).max())}: equal")
+    for name, lower, starts, cap in merge_join_pairs_hazards(rng):
+        lower, starts = t(lower), t(starts)
+        got = mj.merge_join_pairs_cuda(lower, starts, cap)
+        torch.cuda.synchronize()
+        same(f"merge_join_pairs {name}", got, ref.merge_join_pairs_ref(lower, starts, cap))
+        log(f"[kernels] merge_join_pairs {name} S={starts.shape[0]} N={starts.shape[1]} "
+            f"cap={cap} last start max={int(starts[:, -1].max())}: equal")
+    for name, keys, counts, parts in hash_partition_pack_hazards(rng):
+        k, c = t(keys), t(counts)
+        got = hp.hash_partition_pack_cuda(k, c, parts)
+        torch.cuda.synchronize()
+        same(f"hash_partition_pack {name}", got, ref.hash_partition_pack_ref(k, c, parts))
+        log(f"[kernels] hash_partition_pack {name} S={keys.shape[0]} N={keys.shape[1]} "
+            f"P={parts}: equal")
 
 
 def run_submit(torch, session, query, lam, label: str) -> dict:
@@ -594,7 +702,29 @@ def phase_parity(torch) -> None:
             f"(both schedules)")
 
 
+def pairs_design_bytes(torch, starts, a_idx, cap: int) -> tuple:
+    """What merge_join_pairs' design moves at these inputs, and the shape of
+    its data: starts read once for every key before a segment's trailing run
+    of equal starts (the run's slots are written without it), lower read at
+    each selected key, 8 bytes written per slot.  → (bytes, stats text)."""
+    s, n = starts.shape
+    last = starts[:, -1:].to(torch.int64)
+    c = last.clamp(0, cap)
+    merged = int((starts.to(torch.int64) < c).sum())         # keys before some slot
+    selected = s + int((a_idx[:, 1:] != a_idx[:, :-1]).sum()) if cap else 0
+    zero = float((starts[:, 1:] == starts[:, :-1]).float().mean()) if n > 1 else 0.0
+    tail = float((starts == starts[:, -1:]).float().mean())
+    aliased = float((torch.arange(cap, device=starts.device)[None, :] >= last).float().mean())
+    text = (f"zero-count keys {zero:.3f}, trailing run {tail:.3f} of the keys, slots at or "
+            f"past the last start {aliased:.3f}, last start mean {float(last.float().mean()):.0f}"
+            f" max {int(last.max())}")
+    return 4 * merged + 4 * selected + 8 * s * cap + 8 * s, text
+
+
 def phase_timing(torch, capture: InputCapture, launches: dict) -> list:
+    """Phase 6: each join kernel at the largest inputs phases 3-5 gave it.
+    For the two kernels redesigned last it also logs the device time and
+    device operations per call (torch.profiler)."""
     from repro_torch.kernels import ref
 
     hp, mj = kernel_modules()
@@ -604,6 +734,7 @@ def phase_timing(torch, capture: InputCapture, launches: dict) -> list:
         if name not in capture.best:
             raise AssertionError(f"{name}: the main path never called it")
         _, args = capture.best[name]
+        extra = ""
         if name == "hash_partition_pack":
             keys, counts, parts = args
             s, n = keys.shape
@@ -639,11 +770,19 @@ def phase_timing(torch, capture: InputCapture, launches: dict) -> list:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         nbytes = need(got)
+        if name == "merge_join_pairs":
+            design, stats = pairs_design_bytes(torch, starts, got[0], cap)
+            extra += (f"; the design moves {design} bytes "
+                      f"({design / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate); {stats}")
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
         del got, want
         med, spread = time_rounds(torch, kern, plain, library)
         ms, plain_ms, library_ms = med["kernel"], med["plain"], med.get("library")
+        if name != "merge_join_counts":     # the two redesigned last
+            dev_ms, dev_ops, dev_names = device_ms(torch, kern)
+            extra += (f"; device {dev_ms:.4f} ms and {dev_ops:g} device operations per call "
+                      f"({', '.join(dev_names)})")
         # the bytes the function must move: each needed input read once,
         # each output written once
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -653,13 +792,45 @@ def phase_timing(torch, capture: InputCapture, launches: dict) -> list:
                "library_ms": library_ms}
         log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
-            f"bound {bound_ms:.4f} ms ({nbytes} bytes), max_abs_err {err}; "
+            f"bound {bound_ms:.4f} ms ({nbytes} bytes), max_abs_err {err}{extra}; "
             f"medians of 5 rounds, range ms: {spread}")
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version at {shape}")
         out.append(row)
         torch.cuda.empty_cache()
+    pack_at_scale(torch, hp)
     return out
+
+
+def pack_at_scale(torch, hp) -> None:
+    """hash_partition_pack at S=64, N=2^20, P=64 (1024 tiles of look-back a
+    segment), checked against its plain version and timed beside its byte
+    bound (one log line; not a row of the ``kernels`` line)."""
+    from repro_torch.kernels import ref
+
+    s, n, parts = 64, 1 << 20, 64
+    rng = np.random.default_rng(3)
+    keys = torch.from_numpy(rng.integers(-(2**31), 2**31, (s, n)).astype(np.int32)).cuda()
+    counts = torch.from_numpy(rng.integers(n - n // 8, n + 1, s).astype(np.int32)).cuda()
+    kern = lambda: hp.hash_partition_pack_cuda(keys, counts, parts)
+    got = kern()
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref.hash_partition_pack_ref(keys, counts, parts)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"hash_partition_pack S={s} N={n} P={parts}: kernel differs")
+    del got
+    torch.cuda.empty_cache()
+    med, spread = time_rounds(torch, kern, None, None)
+    dev, ops, _ = device_ms(torch, kern)
+    nbytes = 12 * s * n + 4 * s + 4 * s * parts
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    text = (f"[timing] hash_partition_pack at scale S={s} N={n} P={parts}: kernel "
+            f"{med['kernel']:.4f} ms ({bound_ms / med['kernel']:.3f} of its bound), device "
+            f"{dev:.4f} ms and {ops:g} operations per call, bound {bound_ms:.4f} ms ({nbytes} "
+            f"bytes), equal to its plain version")
+    log(f"{text}; medians of 5 rounds, range ms: {spread}")
+    del keys, counts
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

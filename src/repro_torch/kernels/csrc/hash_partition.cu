@@ -10,24 +10,40 @@
 //
 // The TPU kernel carries a running per-partition base from one 1024-row tile
 // to the next through its sequential grid.  Blocks on this card run in no
-// order, so the carry becomes three passes:
-//   1. hp_tile_hist  — per (segment, tile) a (P+1)-bin histogram in shared
-//                      memory (shared-memory atomics);
-//   2. hp_tile_scan  — per (segment, bin) an exclusive scan over the tiles,
-//                      in place, plus the segment's send counts;
-//   3. hp_tile_rank  — per tile a stable rank: every warp ranks its lanes
-//                      with __match_any_sync and a popcount of the lower-lane
-//                      mask, the per-warp bin counts are scanned across the
-//                      block's warps in shared memory, and
-//                      slot = tile base + warp base + lane rank.
+// fixed order, so the carry becomes a single-pass scan across each segment's
+// tiles by decoupled look-back (Merrill & Garland): one kernel after one
+// memset of its status words, one block per tile.
+//   - Tiles follow blockIdx, tile-major across the segments (block b takes
+//     tile b / S of segment b % S), as CUB's single-pass scan does: a tile
+//     waits only on blocks of lower index, which the card dispatches first.
+//     An atomic ticket would not depend on that, at the price of a
+//     same-address atomic and its round trip at the head of every block.
+//     Tile-major order spreads the blocks in flight over the segments, so
+//     each looks back over few tiles still running.
+//   - 256 threads load 4 rows each, coalesced; each warp ranks its 128
+//     consecutive rows in 4 rounds of 32.  A lane sets its bit in a
+//     per-(warp, bin) lane mask with a shared-memory atomicOr; the mask
+//     gives the lane's peers, its rank is the popcount of the lower ones
+//     plus the warp's running count of the bin (__match_any_sync would
+//     find the peers too, but it is slow enough on this card to be what a
+//     ranking built on it waits on).
+//   - Partition ids are stored at once; one thread per bin sums the warps'
+//     counts, publishes them as the tile's aggregate, looks back over the
+//     earlier tiles of its segment (adding aggregates until it meets an
+//     inclusive prefix), publishes its own inclusive prefix and turns the
+//     warps' counts into bases; the segment's last tile writes the send
+//     counts.  A status word packs its flag and value (0: not yet; bit 31
+//     clear: aggregate + 1; bit 31 set: inclusive prefix), so one load reads
+//     both.  slot = base + rank, stored coalesced.
 // Stability (row order within a partition) is what keeps the exchanged rows
 // byte-identical to the reference.
 //
 // Bound: memory.  A row costs 4 bytes of key read and 8 bytes of part + slot
-// written (12 bytes); pass 3 reads the key a second time and the tile
-// histograms are (P+1)·4 bytes per 1024 rows.  The design keeps every
-// per-row access coalesced and all ranking in registers and shared memory.
-//
+// written (12 bytes); every row is read and written once, and the status
+// words add (P+1)·4 bytes per 1024 rows.  At the join path's sizes (1-16
+// tiles a segment, one wave of blocks) what remains is one block's latency:
+// load, rank, look back, store.
+
 // hash_partition replaces the TPU kernel `_kernel` / `hash_partition_pallas`
 // in the same file.  The TPU kernel writes a (N/1024, P) per-tile histogram
 // (a one-hot sum, since the TPU has no atomics) and the public op pads N to a
@@ -46,8 +62,7 @@
 
 namespace {
 
-constexpr int kTile = 1024;     // rows per tile == threads per block in pass 3
-constexpr int kWarps = kTile / 32;
+constexpr int kTile = 1024;     // rows per tile of hash_partition_pack
 
 __device__ __forceinline__ uint32_t mix_u32(uint32_t k) {
   uint32_t h = (k ^ (k >> 16)) * 2654435761u;
@@ -55,82 +70,99 @@ __device__ __forceinline__ uint32_t mix_u32(uint32_t k) {
   return h ^ (h >> 16);
 }
 
-__device__ __forceinline__ int part_of(const int* keys, int count, int64_t base,
-                                       int row, int n_parts) {
-  if (row >= count) return n_parts;
-  return static_cast<int>(mix_u32(static_cast<uint32_t>(keys[base + row])) %
-                          static_cast<uint32_t>(n_parts));
+constexpr int kPackThreads = 256;
+constexpr int kPackWarps = kPackThreads / 32;
+constexpr int kRowsPerThread = kTile / kPackThreads;
+constexpr unsigned kPrefix = 0x80000000u;     // status flag: inclusive prefix
+
+__device__ __forceinline__ unsigned load_status(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__global__ void hp_tile_hist(const int* __restrict__ keys,
-                             const int* __restrict__ counts, int n, int n_parts,
-                             int n_tiles, int* __restrict__ tile_hist) {
-  extern __shared__ int bins[];
-  const int64_t block = blockIdx.x;
-  const int seg = static_cast<int>(block / n_tiles);
-  const int tile = static_cast<int>(block % n_tiles);
+__device__ __forceinline__ void store_status(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+
+// One block per 1024-row tile; block b takes tile b / n_segs of segment
+// b % n_segs, so a tile waits only on blocks of lower index.  status:
+// (n_segs, n_tiles, n_parts + 1) words, zeroed.
+__global__ void __launch_bounds__(kPackThreads, 2048 / kPackThreads)
+hp_pack(const int* __restrict__ keys, const int* __restrict__ counts, int n_segs, int n,
+        int n_parts, int n_tiles, unsigned* __restrict__ status, int* __restrict__ part_out,
+        int* __restrict__ slot_out, int* __restrict__ send_counts) {
+  // warp_cnt (kPackWarps, nb): each warp's running count per bin, then the
+  // bases of its rows; lane_mask (2, kPackWarps, nb): the lanes of each bin
+  // in the current round, alternate rounds alternating
+  extern __shared__ int warp_cnt[];
   const int nb = n_parts + 1;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) bins[b] = 0;
-  __syncthreads();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tile = static_cast<int>(blockIdx.x / n_segs);
+  const int seg = static_cast<int>(blockIdx.x % n_segs);
+  unsigned* lane_mask = reinterpret_cast<unsigned*>(warp_cnt + kPackWarps * nb);
+  for (int i = tid; i < 3 * kPackWarps * nb; i += kPackThreads) warp_cnt[i] = 0;
   const int count = counts[seg];
   const int64_t base = static_cast<int64_t>(seg) * n;
-  const int end = min(n, (tile + 1) * kTile);
-  for (int row = tile * kTile + threadIdx.x; row < end; row += blockDim.x) {
-    atomicAdd(&bins[part_of(keys, count, base, row, n_parts)], 1);
+  // each warp ranks 128 consecutive rows, 32 at a time (coalesced loads)
+  const int64_t row0 = static_cast<int64_t>(tile) * kTile + warp * 32 * kRowsPerThread + lane;
+  int key[kRowsPerThread], part_rank[kRowsPerThread];   // part | rank << 16
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int64_t row = row0 + r * 32;
+    key[r] = row < n ? keys[base + row] : 0;
   }
   __syncthreads();
-  int* out = tile_hist + block * nb;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) out[b] = bins[b];
-}
-
-__global__ void hp_tile_scan(int n_segs, int n_parts, int n_tiles,
-                             int* __restrict__ tile_hist,
-                             int* __restrict__ send_counts) {
-  const int nb = n_parts + 1;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(n_segs) * nb) return;
-  const int64_t seg = idx / nb;
-  const int b = static_cast<int>(idx % nb);
-  int* h = tile_hist + seg * n_tiles * nb + b;
-  int run = 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int c = h[static_cast<int64_t>(t) * nb];
-    h[static_cast<int64_t>(t) * nb] = run;
-    run += c;
-  }
-  if (b < n_parts) send_counts[seg * n_parts + b] = run;
-}
-
-__global__ void __launch_bounds__(kTile)
-hp_tile_rank(const int* __restrict__ keys, const int* __restrict__ counts,
-             int n, int n_parts, int n_tiles,
-             const int* __restrict__ tile_base, int* __restrict__ part_out,
-             int* __restrict__ slot_out) {
-  extern __shared__ int warp_cnt[];        // (kWarps, n_parts + 1)
-  const int64_t block = blockIdx.x;
-  const int seg = static_cast<int>(block / n_tiles);
-  const int tile = static_cast<int>(block % n_tiles);
-  const int nb = n_parts + 1;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) warp_cnt[i] = 0;
-  __syncthreads();
-
-  const int count = counts[seg];
-  const int64_t base = static_cast<int64_t>(seg) * n;
-  const int row = tile * kTile + threadIdx.x;
-  const bool in_range = row < n;
-  // rows past the array end form their own group (id nb) and write nothing
-  const int part = in_range ? part_of(keys, count, base, row, n_parts) : nb;
-  const unsigned peers = __match_any_sync(0xffffffffu, part);
+  int* cnt = warp_cnt + warp * nb;         // this warp's running count per bin
   const unsigned lower_lanes = (1u << lane) - 1u;
-  const int lane_rank = __popc(peers & lower_lanes);
-  if (in_range && lane == __ffs(peers) - 1) warp_cnt[warp * nb + part] = __popc(peers);
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int64_t row = row0 + r * 32;
+    // rows past the array end form their own group (id nb) and write nothing
+    const int p = row >= n ? nb
+                : row >= count ? n_parts
+                : static_cast<int>(mix_u32(static_cast<uint32_t>(key[r])) %
+                                   static_cast<uint32_t>(n_parts));
+    // this round's lanes of each bin: each lane sets its bit; the leader
+    // clears the mask, which the round after next reuses
+    unsigned* mask = lane_mask + (r & 1) * kPackWarps * nb + warp * nb;
+    if (p < nb) atomicOr(&mask[p], 1u << lane);
+    __syncwarp();
+    const unsigned peers = p < nb ? mask[p] : 0u;
+    const int before = p < nb ? cnt[p] : 0;
+    __syncwarp();
+    if (p < nb && lane == __ffs(peers) - 1) {
+      cnt[p] = before + __popc(peers);
+      mask[p] = 0u;
+    }
+    part_rank[r] = p | (before + __popc(peers & lower_lanes)) << 16;
+    if (row < n) part_out[base + row] = p;   // slots wait for the look-back
+  }
   __syncthreads();
 
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    int run = 0;
-    for (int w = 0; w < kWarps; ++w) {
+  for (int b = tid; b < nb; b += kPackThreads) {
+    int agg = 0;
+#pragma unroll
+    for (int w = 0; w < kPackWarps; ++w) agg += warp_cnt[w * nb + b];
+    unsigned* mine = status + (static_cast<int64_t>(seg) * n_tiles + tile) * nb + b;
+    int run = 0;                           // rows of bin b in the segment's earlier tiles
+    if (tile > 0) {
+      store_status(mine, static_cast<unsigned>(agg) + 1u);
+      for (const unsigned* prev = mine - nb;; prev -= nb) {
+        unsigned w;
+        while ((w = load_status(prev)) == 0u) {
+        }
+        if (w & kPrefix) {
+          run += static_cast<int>(w & ~kPrefix);
+          break;
+        }
+        run += static_cast<int>(w - 1u);
+      }
+    }
+    store_status(mine, kPrefix | static_cast<unsigned>(run + agg));
+    if (tile == n_tiles - 1 && b < n_parts) send_counts[seg * n_parts + b] = run + agg;
+#pragma unroll
+    for (int w = 0; w < kPackWarps; ++w) {
       const int c = warp_cnt[w * nb + b];
       warp_cnt[w * nb + b] = run;
       run += c;
@@ -138,10 +170,10 @@ hp_tile_rank(const int* __restrict__ keys, const int* __restrict__ counts,
   }
   __syncthreads();
 
-  if (in_range) {
-    const int tb = tile_base[block * nb + part];
-    part_out[base + row] = part;
-    slot_out[base + row] = tb + warp_cnt[warp * nb + part] + lane_rank;
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int64_t row = row0 + r * 32;
+    if (row < n) slot_out[base + row] = cnt[part_rank[r] & 0xffff] + (part_rank[r] >> 16);
   }
 }
 
@@ -196,27 +228,24 @@ extern "C" int hash_partition_launch(const int* keys, int n, int n_parts, int* p
 
 // keys (n_segs, n) int32; counts (n_segs,) int32; outputs part, slot
 // (n_segs, n) and send_counts (n_segs, n_parts) int32; scratch
-// (n_segs, ceil(n / 1024), n_parts + 1) int32.  Returns cudaGetLastError().
+// n_segs · max(1, ceil(n / 1024)) · (n_parts + 1) int32 status words, zeroed
+// here.  N = 0 still launches, one empty tile per segment, which writes zero
+// send counts.  Returns cudaGetLastError().
 extern "C" int hash_partition_pack_launch(const int* keys, const int* counts,
                                           int n_segs, int n, int n_parts,
                                           int* part, int* slot, int* send_counts,
                                           int* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (n + kTile - 1) / kTile;
+  const int n_tiles = std::max(1, (n + kTile - 1) / kTile);
   const int nb = n_parts + 1;
   const int64_t blocks = static_cast<int64_t>(n_segs) * n_tiles;
   if (blocks > 0) {
-    hp_tile_hist<<<static_cast<unsigned>(blocks), 256, nb * sizeof(int), st>>>(
-        keys, counts, n, n_parts, n_tiles, scratch);
-  }
-  const int64_t scan_threads = static_cast<int64_t>(n_segs) * nb;
-  if (scan_threads > 0) {
-    hp_tile_scan<<<static_cast<unsigned>((scan_threads + 255) / 256), 256, 0, st>>>(
-        n_segs, n_parts, n_tiles, scratch, send_counts);
-  }
-  if (blocks > 0) {
-    hp_tile_rank<<<static_cast<unsigned>(blocks), kTile, kWarps * nb * sizeof(int), st>>>(
-        keys, counts, n, n_parts, n_tiles, scratch, part, slot);
+    cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * blocks * nb, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = sizeof(int) * 3 * kPackWarps * nb;
+    hp_pack<<<static_cast<unsigned>(blocks), kPackThreads, smem, st>>>(
+        keys, counts, n_segs, n, n_parts, n_tiles, reinterpret_cast<unsigned*>(scratch), part,
+        slot, send_counts);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,7 @@ import torch
 from . import _build
 
 TILE = 1024
-WARPS = TILE // 32
+MAX_PARTS = 383                 # hash_partition_pack's accepted range of P
 SMEM_LIMIT = 48 * 1024          # default dynamic shared memory per block
 
 
@@ -31,23 +31,21 @@ def hash_partition_pack_cuda(keys: torch.Tensor, counts: torch.Tensor, n_parts: 
     _require(keys.dim() == 2 and counts.shape == (keys.shape[0],), "want keys (S, N), counts (S,)")
     _require(keys.is_contiguous() and counts.is_contiguous(), "tensors must be contiguous")
     _require(n_parts >= 1, "n_parts must be >= 1")
-    smem = WARPS * (n_parts + 1) * 4
-    _require(smem <= SMEM_LIMIT, f"{n_parts + 1} bins x {WARPS} warps exceed shared memory")
+    _require(n_parts <= MAX_PARTS, f"n_parts must be <= {MAX_PARTS}")
     s, n = keys.shape
     _require(s * n < 2**31, "batch too large for int32 indexing")
-    part = torch.empty_like(keys)
-    slot = torch.empty_like(keys)
+    # part and slot share one allocation
+    part, slot = torch.empty((2, s, n), dtype=torch.int32, device=keys.device).unbind(0)
     send = torch.empty((s, n_parts), dtype=torch.int32, device=keys.device)
     if s == 0:                      # nothing to compute: no launch, no count
         return part, slot, send
-    n_tiles = -(-n // TILE)
-    scratch = torch.empty((max(1, s * n_tiles * (n_parts + 1)),), dtype=torch.int32,
-                          device=keys.device)
+    n_tiles = max(1, -(-n // TILE))     # N = 0: one empty tile per segment
+    status = torch.empty((s * n_tiles * (n_parts + 1),), dtype=torch.int32, device=keys.device)
     fn = _build.launcher("hash_partition_pack_launch")
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     rc = fn(keys.data_ptr(), counts.data_ptr(), s, n, n_parts, part.data_ptr(),
-            slot.data_ptr(), send.data_ptr(), scratch.data_ptr(), stream)
-    _build.launched("hash_partition_pack", rc)    # N = 0 still runs the scan pass
+            slot.data_ptr(), send.data_ptr(), status.data_ptr(), stream)
+    _build.launched("hash_partition_pack", rc)    # N = 0 still writes zero send counts
     return part, slot, send
 
 

@@ -19,10 +19,11 @@ def _require(cond: bool, name: str, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-#: the grid's x extent (< 2^31 blocks of 256 threads) bounds the elements
-#: of one launch: one thread per output slot for the pairs, one per 8 merge
-#: steps for the counts (whose launcher also refuses a grid past 2^31 - 1
-#: blocks, which the wrapper then raises)
+#: the elements of one launch: the grid's x extent (< 2^31 blocks) at 256
+#: per block.  Both launchers give a block a 2816-element stretch of a merge
+#: (the counts: keys of A and B; the pairs: keys and output slots, plus the
+#: slots past the last key's start) and refuse a grid past 2^31 - 1 blocks,
+#: which the wrapper then raises
 MAX_THREADS = 256 * (2**31 - 1)
 
 

@@ -16,7 +16,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import merge_join as tmj
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
-from repro_torch.kernels.hash_partition import hash_partition_cuda, hash_partition_pack_cuda
+from repro_torch.kernels.hash_partition import (MAX_PARTS, hash_partition_cuda,
+                                                hash_partition_pack_cuda)
 from repro_torch.kernels.ssd import ssd_chunk_cuda
 from repro_torch.kernels import ref as tref
 
@@ -102,6 +103,91 @@ def test_merge_join_counts_kernel_edge_cases_on_card(cuda_device, name):
     got = tmj.merge_join_counts_cuda(a.to(cuda_device), b.to(cuda_device))
     assert _build.launches["merge_join_counts"] == before + 1
     for g, w in zip(got, tref.merge_join_counts_ref(a, b)):
+        assert torch.equal(g.cpu(), w)
+
+
+def pairs_from_counts(rng, counts):
+    """(lower, starts) int32 CPU tensors for per-key match counts (S, N)."""
+    starts = np.cumsum(counts, axis=1) - counts
+    lower = np.cumsum(rng.integers(0, 3, counts.shape), axis=1) + starts
+    return torch.from_numpy(lower.astype(np.int32)), torch.from_numpy(starts.astype(np.int32))
+
+
+def merge_join_pairs_edge_case(name):
+    """(lower, starts, cap_out) for one named hazard of the load-balancing
+    search (each block owns 2816 elements of the merge of keys and slots)."""
+    rng = np.random.default_rng(len(name))
+    if name in ("main-path-regime", "cap-off-stretch"):  # 90% zero counts, 35% zero tail
+        counts = np.where(rng.random((16, 40000)) < 0.1, rng.geometric(0.7, (16, 40000)), 0)
+        counts[:, 26000:] = 0
+        cap = int(1.6 * counts.sum(axis=1).max()) if name == "main-path-regime" else 3 * 2816 + 17
+    elif name == "total-over-cap":           # keys past the last slot
+        counts = rng.integers(0, 6, (16, 20000))
+        cap = int(counts.sum(axis=1).min()) // 3
+    elif name == "hub-owns-all-slots":       # one key across 372 stretches
+        counts = np.zeros((8, 5000), np.int64)
+        counts[:, 1234] = 1 << 20
+        cap = 1 << 20
+    elif name == "equal-starts-across-stretches":
+        counts = np.zeros((16, 30000), np.int64)
+        counts[:, ::3001] = 5
+        cap = 60
+    elif name == "n1":
+        counts, cap = rng.integers(0, 9, (8, 1)), 1000
+    elif name == "cap1":
+        counts, cap = rng.integers(0, 3, (8, 5000)), 1
+    else:                                    # "s4096-small-n"
+        counts, cap = rng.integers(0, 4, (4096, 16)), 64
+    return (*pairs_from_counts(rng, counts), cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["main-path-regime", "total-over-cap", "hub-owns-all-slots",
+                                  "equal-starts-across-stretches", "n1", "cap1",
+                                  "cap-off-stretch", "s4096-small-n"])
+def test_merge_join_pairs_kernel_edge_cases_on_card(cuda_device, name):
+    lower, starts, cap = merge_join_pairs_edge_case(name)
+    before = _build.launches["merge_join_pairs"]
+    got = tmj.merge_join_pairs_cuda(lower.to(cuda_device), starts.to(cuda_device), cap)
+    assert _build.launches["merge_join_pairs"] == before + 1
+    for g, w in zip(got, tref.merge_join_pairs_ref(lower, starts, cap)):
+        assert torch.equal(g.cpu(), w)
+
+
+def hash_partition_pack_edge_case(name):
+    """(keys, counts, n_parts) for one named hazard of the look-back across
+    a segment's 1024-row tiles."""
+    rng = np.random.default_rng(len(name))
+    keys = lambda s, n: rng.integers(-(2**31), 2**31, (s, n)).astype(np.int32)
+    mixed = lambda s, n: np.array([0, n] * (s // 2), np.int32)
+    if name == "n2e20-one-partition":        # 1024 tiles of look-back, one bin
+        k, c, parts = np.full((4, 1 << 20), 777, np.int32), np.full(4, 1 << 20, np.int32), 64
+    elif name == "n2e20-64-partitions":
+        k, c, parts = keys(4, 1 << 20), rng.integers(0, (1 << 20) + 1, 4).astype(np.int32), 64
+    elif name == "n-off-1024":
+        k, c, parts = keys(6, 5003), mixed(6, 5003), 16
+    elif name == "n1":
+        k, c, parts = keys(4, 1), mixed(4, 1), 5
+    elif name == "counts-0-and-n":
+        k, c, parts = keys(8, 4096), mixed(8, 4096), 64
+    elif name == "p1":
+        k, c, parts = keys(4, 3000), np.full(4, 3000, np.int32), 1
+    elif name == "p-largest":                # the largest P the wrapper takes
+        k, c, parts = keys(4, 9000), rng.integers(0, 9001, 4).astype(np.int32), MAX_PARTS
+    else:                                    # "s4096-one-tile"
+        k, c, parts = keys(4096, 1024), rng.integers(0, 1025, 4096).astype(np.int32), 64
+    return torch.from_numpy(k), torch.from_numpy(c), parts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["n2e20-one-partition", "n2e20-64-partitions", "n-off-1024",
+                                  "n1", "counts-0-and-n", "p1", "p-largest", "s4096-one-tile"])
+def test_hash_partition_pack_kernel_edge_cases_on_card(cuda_device, name):
+    keys, counts, parts = hash_partition_pack_edge_case(name)
+    before = _build.launches["hash_partition_pack"]
+    got = hash_partition_pack_cuda(keys.to(cuda_device), counts.to(cuda_device), parts)
+    assert _build.launches["hash_partition_pack"] == before + 1
+    for g, w in zip(got, tref.hash_partition_pack_ref(keys, counts, parts)):
         assert torch.equal(g.cpu(), w)
 
 

@@ -81,7 +81,7 @@ def test_salted_keys_wrap_like_int32(salt):
 
 
 @pytest.mark.parametrize("n,parts", [(1024, 8), (4096, 64), (1000, 3), (1, 1), (3001, 64),
-                                     (2048, 1)])
+                                     (2048, 1), (2500, 383), (1025, 2)])
 def test_hash_partition_pack_matches_jax(n, parts):
     rng = np.random.default_rng(n * 131 + parts)
     keys = rng.integers(-(2**31), 2**31, (3, n)).astype(np.int32)
@@ -179,6 +179,44 @@ def test_merge_join_pairs_matches_jax(n, m, dom, cap_out):
         lower, starts,
     )
     got = tref.merge_join_pairs_ref(torch.from_numpy(lower), torch.from_numpy(starts), cap_out)
+    assert_same(got, want)
+
+
+def pairs_from_counts(rng, counts):
+    starts = np.cumsum(counts, axis=1) - counts
+    lower = np.cumsum(rng.integers(0, 3, counts.shape), axis=1) + starts
+    return lower.astype(np.int32), starts.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["zero-count-tail", "hub-key", "all-zero", "equal-start-runs",
+                                  "cap-one"])
+def test_merge_join_pairs_from_counts_matches_jax(case):
+    """The load-balancing search's regimes on the plain version: mostly
+    zero-count keys with a zero-count tail (slots past the total alias the
+    last key), one key owning every slot, no match at all, long runs of
+    equal starts, a single slot."""
+    rng = np.random.default_rng(len(case))
+    n, cap = 1000, 1500
+    if case == "zero-count-tail":
+        counts = np.where(rng.random((3, n)) < 0.1, rng.geometric(0.7, (3, n)), 0)
+        counts[:, 650:] = 0
+    elif case == "hub-key":
+        counts = np.zeros((3, n), np.int64)
+        counts[:, 77] = cap
+    elif case == "all-zero":
+        counts = np.zeros((3, n), np.int64)
+    elif case == "equal-start-runs":
+        counts = np.zeros((3, n), np.int64)
+        counts[:, ::301] = 5
+    else:
+        counts, cap = rng.integers(0, 3, (3, n)), 1
+    lower, starts = pairs_from_counts(rng, counts)
+    want = per_segment(
+        lambda lo, st: jops.merge_join_pairs(jnp.asarray(lo), jnp.asarray(st), cap,
+                                             use_pallas=True),
+        lower, starts,
+    )
+    got = tref.merge_join_pairs_ref(torch.from_numpy(lower), torch.from_numpy(starts), cap)
     assert_same(got, want)
 
 
