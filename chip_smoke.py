@@ -6,7 +6,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. environment: card name and power limit, torch / CUDA / nvcc versions,
      and the build of every hand-written kernel from ``kernels/csrc``, with
      ptxas's registers, shared memory and spills per kernel and a check of
-     the bf16 attention's SASS for tensor-core instructions (HMMA/HGMMA);
+     the SASS of the bf16 attention and of the two ssd_chunk kernels that
+     run 3xTF32 products for tensor-core instructions (HMMA/HGMMA);
   2. every kernel against its plain PyTorch version on the card on
      edge-case inputs: the integer kernels bit for bit (ragged lengths,
      empty and full counts, all-sentinel segments, duplicated keys, keys
@@ -21,8 +22,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      not, head dims 16-128, within 1e-4 (f32) and, in bf16, within the
      rounding error of the output and the weights
      (``ref.flash_attention_bf16_tolerance``); ssd_chunk at chunks
-     16/64/256, one chunk and eight, within 1e-4 of the plain version's
-     largest magnitude;
+     16/64/256, one chunk and eight, and at its hazards (P = 17, N = 33,
+     chunk 40; 64 chunks of 16; BH = 1; a = 0; a = -50; inputs one element
+     off a 16-byte boundary), within 1e-4 of the plain version's largest
+     magnitude; hash_partition also at N = 1, 3, 4097, N = 2^20 from an
+     offset view and the largest P the wrapper takes;
   3. the join service at real size: the triangle query over a 2M-edge Zipf
      graph (500k vertices, skew 0.9, degree-oriented), ``JoinSession(p=64)``,
      submitted cold and warm; count against a scipy-sparse oracle, warm rows
@@ -44,8 +48,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      outputs checked against the plain versions (and the bf16 attention
      limit against a variant with a key tile dropped, which it must catch in
      most rows), then each timed beside its plain version, its bound and
-     (attention) SDPA, with TF32 off; and bf16 attention at a second head
-     dim (deepseek-moe-16b prefill, D = 128) beside SDPA, in one log line;
+     (attention) SDPA, with TF32 off; for ssd_chunk and hash_partition also
+     the device time and device operations per call (torch.profiler), and
+     one line of hash_partition at N = 2^26, P = 64 beside its bound; and
+     bf16 attention at a second head dim (deepseek-moe-16b prefill, D = 128)
+     beside SDPA, in one log line;
   then the ``kernels`` JSON line (six rows).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -72,6 +79,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores (data sheet)
+TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32 tensor cores (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data sheet)
 INT32_MAX = 2**31 - 1
 
@@ -93,7 +101,12 @@ JOIN_KERNELS = ("hash_partition_pack", "merge_join_counts", "merge_join_pairs")
 # the kernels redesigned for Hopper, by source stem: phase 1 logs their
 # registers, shared memory and spills
 REDESIGNED = {"flash_attention": ["flash_fwd_tc"], "merge_join": ["mj_counts", "mj_pairs"],
-              "hash_partition": ["hp_pack"]}
+              "hash_partition": ["hp_pack", "hp_partition_hist"],
+              "ssd": ["ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"]}
+# the kernels whose products run on the tensor cores, by source stem: phase 1
+# fails unless the SASS of each holds HMMA or HGMMA instructions
+TENSOR_CORE = {"flash_attention": ("flash_fwd_tc",),
+               "ssd": ("ssd_chunk_state", "ssd_chunk_scan")}
 LIBRARY_KERNELS = ("hash_partition", "flash_attention", "ssd_chunk")
 # phase 7's widths: h2o-danube-1.8b prefill (src/repro/configs/h2o_danube_1_8b.py;
 # its 4096-token window equals full causal attention at 4096 tokens),
@@ -106,6 +119,7 @@ ATTN_WIDTHS = dict(batch=2, heads=32, kv_heads=8, seq=4096, head_dim=80)
 ATTN_WIDTHS_2 = dict(batch=2, heads=16, seq=4096, head_dim=128)
 SSD_WIDTHS = dict(batch=4, heads=48, seq=4096, chunk=256, headdim=64, d_state=128)
 HASH_KEYS, HASH_PARTS = 2_000_000, 64
+HASH_KEYS_AT_SCALE = 1 << 26       # past the 50 MB L2
 
 
 def log(msg: str) -> None:
@@ -388,26 +402,30 @@ def ptxas_entries(text: str) -> dict:
 
 
 def check_tensor_core_sass(build) -> None:
-    """The bf16 attention instances run on the tensor cores: their SASS (by
+    """The kernels of ``TENSOR_CORE`` run on the tensor cores: their SASS (by
     ``cuobjdump -sass``, beside nvcc) holds HMMA or HGMMA instructions.
-    Raises if a ``flash_fwd_tc`` instance has neither."""
+    Raises if a ``flash_fwd_tc`` instance (one per head dim) or one of the
+    ssd_chunk product kernels has neither."""
     import re
 
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(build._lib_path("flash_attention"))],
-                          capture_output=True, text=True, check=True).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)[1:]
-    names = demangle([f.split("\n", 1)[0].strip() for f in funcs])
-    counts = {}
-    for name, body in zip(names, funcs):
-        counts[name] = {op: len(re.findall(rf"\b{op}\.", body)) for op in ("HMMA", "HGMMA")}
-        log(f"[build] SASS {name}: {counts[name]['HMMA']} HMMA, {counts[name]['HGMMA']} HGMMA")
-    tc = {n: c for n, c in counts.items() if "flash_fwd_tc" in n}
-    if len(tc) != len(HEAD_DIMS) or any(c["HMMA"] + c["HGMMA"] == 0 for c in tc.values()):
-        raise AssertionError(f"bf16 flash_attention: tensor-core instructions missing in its "
-                             f"SASS: {tc}")
+    for stem, wants in TENSOR_CORE.items():
+        sass = subprocess.run([str(tool), "-sass", str(build._lib_path(stem))],
+                              capture_output=True, text=True, check=True).stdout
+        funcs = re.split(r"\n\s*Function : ", sass)[1:]
+        names = demangle([f.split("\n", 1)[0].strip() for f in funcs])
+        counts = {}
+        for name, body in zip(names, funcs):
+            counts[name] = {op: len(re.findall(rf"\b{op}\.", body)) for op in ("HMMA", "HGMMA")}
+            log(f"[build] SASS {name}: {counts[name]['HMMA']} HMMA, "
+                f"{counts[name]['HGMMA']} HGMMA")
+        for want in wants:
+            tc = {n: c for n, c in counts.items() if want in n}
+            instances = len(HEAD_DIMS) if want == "flash_fwd_tc" else 1
+            if len(tc) != instances or any(c["HMMA"] + c["HGMMA"] == 0 for c in tc.values()):
+                raise AssertionError(f"{want}: tensor-core instructions missing in its SASS: {tc}")
 
 
 def _sorted_rows(rng, s, n, dom, fill, sentinel_rows=()):
@@ -932,11 +950,31 @@ def ssd_inputs(torch, rng, batch, heads, s, p, n, dev):
     return [torch.from_numpy(x).to(dev) for x in arrays]
 
 
+# ssd_chunk's hazards: (name, BH, S, P, N, chunk, a or None, storage offset)
+SSD_HAZARDS = [
+    ("ragged tiles", 2, 80, 17, 33, 40, None, 0),
+    ("64 chunks of 16", 2, 1024, 64, 128, 16, None, 0),
+    ("one batch·head", 1, 512, 64, 128, 256, None, 0),
+    ("a=0 (no decay)", 2, 1024, 64, 64, 64, 0.0, 0),
+    ("a=-50 (decay underflows)", 2, 512, 64, 128, 256, -50.0, 0),
+    ("inputs one element off 16 bytes", 2, 256, 64, 128, 64, None, 1),
+]
+
+
+def at_offset(torch, t, offset: int):
+    """A contiguous copy of t on its device whose data starts ``offset``
+    elements into its storage."""
+    buf = torch.empty((t.numel() + offset,), dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_library_kernels(torch, dev) -> None:
     """Phase 2, continued: the library kernels on edge cases."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
-    from repro_torch.kernels.hash_partition import hash_partition_cuda
+    from repro_torch.kernels.hash_partition import SMEM_LIMIT, hash_partition_cuda
     from repro_torch.kernels.ssd import ssd_chunk_cuda
 
     rng = np.random.default_rng(1)
@@ -951,6 +989,18 @@ def phase_library_kernels(torch, dev) -> None:
                 if not torch.equal(g, w):
                     raise AssertionError(f"hash_partition N={n} P={parts}: kernel differs")
         log(f"[kernels] hash_partition N={n} P=1,7,64: equal")
+    p_max = SMEM_LIMIT // 4 - 1                     # the largest P the wrapper takes
+    for name, n, parts, offset in (("N=1", 1, 64, 0), ("N=3", 3, 7, 0), ("N=4097", 4097, 64, 0),
+                                   ("N=2^20 offset view", 1 << 20, 64, 1),
+                                   (f"P={p_max}", 20000, p_max, 0)):
+        full = torch.from_numpy(rng.integers(-(2**31), 2**31, n + offset).astype(np.int32))
+        k = full.to(dev)[offset:]
+        got = hash_partition_cuda(k, parts)
+        torch.cuda.synchronize()
+        for g, w in zip(got, ref.hash_partition_ref(k, parts)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"hash_partition {name}: kernel differs")
+        log(f"[kernels] hash_partition {name} (N={n}, P={parts}, storage offset {offset}): equal")
 
     # ragged Sq and Sk (not multiples of the 64-row tiles), Sq != Sk under
     # the causal mask, BH = 1, every head dim
@@ -981,6 +1031,16 @@ def phase_library_kernels(torch, dev) -> None:
                 err = ssd_close(torch, got, ref.ssd_chunked_ref(*args, chunk))
                 log(f"[kernels] ssd_chunk BH=1 S={chunk * n_chunks} chunk={chunk} P={p} "
                     f"N={n}: max |err| {err:.3g}")
+    for name, bh, s_len, p, n, chunk, a_val, offset in SSD_HAZARDS:
+        args = ssd_inputs(torch, rng, bh, 1, s_len, p, n, dev)
+        if a_val is not None:
+            args[2].fill_(a_val)
+        args = [at_offset(torch, t, offset) for t in args]
+        got = ssd_chunk_cuda(*args, chunk)
+        torch.cuda.synchronize()
+        err = ssd_close(torch, got, ref.ssd_chunked_ref(*args, chunk))
+        log(f"[kernels] ssd_chunk {name} BH={bh} S={s_len} chunk={chunk} P={p} N={n}: "
+            f"max |err| {err:.3g}")
 
 
 def phase_library(torch, dev) -> list:
@@ -1073,7 +1133,8 @@ def phase_library(torch, dev) -> list:
         "ssd_chunk": dict(
             kern=lambda: ops.ssd_chunk(*ssd_args, chunk=chunk),
             plain=lambda: ref.ssd_chunked_ref(*ssd_args, chunk), library=None,
-            flops=ssd_flops, peak=FP32_FLOP_PER_S,
+            # the least time for the work on any pipe: the TF32 tensor cores
+            flops=ssd_flops, peak=TF32_FLOP_PER_S,
             nbytes=4 * (sum(a.numel() for a in ssd_args) + ssd_args[0].numel()
                         + bh_ssd * p_dim * n_dim),
             shape=f"BH={bh_ssd} S={s_len} chunk={chunk} P={p_dim} N={n_dim} fp32"),
@@ -1087,6 +1148,11 @@ def phase_library(torch, dev) -> list:
     for name in LIBRARY_KERNELS:
         c = cases[name]
         med, spread = time_rounds(torch, c["kern"], c["plain"], c["library"])
+        extra = ""
+        if name != "flash_attention":       # the two redesigned last
+            dev_ms, dev_ops, dev_names = device_ms(torch, c["kern"])
+            extra = (f"; device {dev_ms:.4f} ms and {dev_ops:g} device operations per call "
+                     f"({', '.join(dev_names)})")
         ops_ms = c["flops"] / c["peak"] * 1e3
         bytes_ms = c["nbytes"] / HBM_BYTES_PER_S * 1e3
         source, replaces = KERNELS[name]
@@ -1098,12 +1164,44 @@ def phase_library(torch, dev) -> list:
         log(f"[library] {name} {c['shape']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, bound "
             f"{row['bound_ms']:.4f} ms ({c['flops']:.4g} FLOP -> {ops_ms:.4f} ms, "
-            f"{c['nbytes']} bytes -> {bytes_ms:.4f} ms), max_abs_err {row['max_abs_err']}; "
-            f"medians of 5 rounds, range ms: {spread}")
+            f"{c['nbytes']} bytes -> {bytes_ms:.4f} ms), max_abs_err {row['max_abs_err']}"
+            f"{extra}; medians of 5 rounds, range ms: {spread}")
         rows.append(row)
         torch.cuda.empty_cache()
+    del ssd_args, keys32, keys64, folded, q, k, v
+    torch.cuda.empty_cache()
+    hash_partition_at_scale(torch, rng)
     attention_second_width(torch, dev, rng)
     return rows
+
+
+def hash_partition_at_scale(torch, rng) -> None:
+    """hash_partition over ``HASH_KEYS_AT_SCALE`` int32 keys into 64
+    partitions (512 MB of traffic, past the L2), checked against its plain
+    version and timed beside its byte bound (one log line; not a row of the
+    ``kernels`` line)."""
+    from repro_torch.kernels import ops, ref
+
+    n = HASH_KEYS_AT_SCALE
+    keys = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32)).cuda()
+    kern = lambda: ops.hash_partition(keys, HASH_PARTS)
+    got = kern()
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref.hash_partition_ref(keys, HASH_PARTS)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"hash_partition N={n} P={HASH_PARTS}: kernel differs")
+    del got
+    torch.cuda.empty_cache()
+    med, spread = time_rounds(torch, kern, None, None)
+    dev, ops_n, _ = device_ms(torch, kern)
+    nbytes = 8 * n + 4 * HASH_PARTS
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[library] hash_partition at scale N={n} P={HASH_PARTS}: kernel {med['kernel']:.4f} ms "
+        f"({bound_ms / med['kernel']:.3f} of its bound), device {dev:.4f} ms ({bound_ms / dev:.3f} "
+        f"of its bound) and {ops_n:g} operations per call, bound {bound_ms:.4f} ms ({nbytes} "
+        f"bytes), equal to its plain version; medians of 5 rounds, range ms: {spread}")
+    del keys
+    torch.cuda.empty_cache()
 
 
 def attention_second_width(torch, dev, rng) -> None:

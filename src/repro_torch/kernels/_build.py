@@ -39,7 +39,7 @@ LAUNCHERS = {
     "merge_join_pairs_launch": ([_P, _P, _I, _I, _I, _P, _P, _P], "merge_join"),
     "flash_attention_launch": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], "flash_attention"),
-    "ssd_chunk_launch": ([_P] * 7 + [_I] * 5 + [_P], "ssd"),
+    "ssd_chunk_launch": ([_P] * 8 + [_I] * 5 + [_P], "ssd"),
 }
 
 _lock = threading.Lock()

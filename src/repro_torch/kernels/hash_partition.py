@@ -60,10 +60,14 @@ def hash_partition_cuda(keys: torch.Tensor, n_parts: int):
     _require((n_parts + 1) * 4 <= SMEM_LIMIT, f"{n_parts + 1} bins exceed shared memory", name)
     n = keys.shape[0]
     _require(n < 2**31, "N must fit int32", name)
-    part = torch.empty_like(keys)
     if n == 0:                      # nothing to compute: no launch, no count
-        return part, torch.zeros((n_parts,), dtype=torch.int32, device=keys.device)
-    hist = torch.empty((n_parts,), dtype=torch.int32, device=keys.device)
+        return (torch.empty_like(keys),
+                torch.zeros((n_parts,), dtype=torch.int32, device=keys.device))
+    # part and hist share one allocation; part starts at the keys' offset
+    # modulo 16 bytes, so the kernel's 16-byte loads and stores line up
+    phase = keys.data_ptr() // 4 % 4
+    buf = torch.empty((phase + n + n_parts,), dtype=torch.int32, device=keys.device)
+    part, hist = buf[phase:phase + n], buf[phase + n:]
     fn = _build.launcher("hash_partition_launch")
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     rc = fn(keys.data_ptr(), n, n_parts, part.data_ptr(), hist.data_ptr(), stream)

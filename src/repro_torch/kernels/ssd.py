@@ -1,8 +1,8 @@
 """Wrapper of the ``ssd_chunk`` CUDA kernel (csrc/ssd.cu).
 
 The kernel replaces the TPU kernel ``ssd_chunk_pallas``
-(src/repro/kernels/ssd.py): the Mamba-2 SSD scan, chunk after chunk, with the
-state carried inside the kernel.
+(src/repro/kernels/ssd.py): the Mamba-2 SSD scan, as three launches on one
+stream (chunk-local states, the scan over the states, the chunk outputs).
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: to
                    c_ssm: torch.Tensor, chunk: int):
     """x (BH, S, P), dt (BH, S), a (BH,), b/c (BH, S, N), float32, contiguous
     on one CUDA device, S % chunk == 0 → (y (BH, S, P), final_state
-    (BH, P, N)) float32.  Raises RuntimeError where (chunk, P, N) need more
-    shared memory than a block can have."""
+    (BH, P, N)) float32.  Raises RuntimeError where the chunk needs more
+    shared memory than a block can have (chunk above about 22,000 steps)."""
     args = (x, dt, a, b_ssm, c_ssm)
     _require(x.is_cuda and all(t.device == x.device for t in args),
              "tensors must share one CUDA device")
@@ -41,9 +41,12 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: to
     state = torch.empty((bh, p, n), dtype=torch.float32, device=x.device)
     if bh == 0:                     # nothing to compute: no launch, no count
         return y, state
+    # the chunks' local states (then the states before each chunk), then cum
+    scratch = torch.empty((bh * (s // chunk) * p * n + bh * s,), dtype=torch.float32,
+                          device=x.device)
     fn = _build.launcher("ssd_chunk_launch")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(*(t.data_ptr() for t in args), y.data_ptr(), state.data_ptr(), bh, s, p, n, chunk,
-            stream)
+    rc = fn(*(t.data_ptr() for t in args), y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+            bh, s, p, n, chunk, stream)
     _build.launched("ssd_chunk", rc)
     return y, state

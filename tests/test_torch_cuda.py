@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import merge_join as tmj
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
-from repro_torch.kernels.hash_partition import (MAX_PARTS, hash_partition_cuda,
+from repro_torch.kernels.hash_partition import (MAX_PARTS, SMEM_LIMIT, hash_partition_cuda,
                                                 hash_partition_pack_cuda)
 from repro_torch.kernels.ssd import ssd_chunk_cuda
 from repro_torch.kernels import ref as tref
@@ -223,6 +223,31 @@ def test_hash_partition_kernel_on_card(cuda_device, n, parts):
         assert torch.equal(g.cpu(), w)
 
 
+#: (N, P, offset): N below, at and past one group of 4 keys, keys that start
+#: off a 16-byte boundary (an offset view), and the largest P the wrapper takes
+HASH_PARTITION_EDGES = {
+    "n1": (1, 64, 0), "n3": (3, 7, 0), "n4097": (4097, 64, 0),
+    "n2e20-offset-view": (1 << 20, 64, 1), "n3-offset-view": (3, 5, 3),
+    "p-largest": (20000, SMEM_LIMIT // 4 - 1, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(HASH_PARTITION_EDGES))
+def test_hash_partition_kernel_edge_cases_on_card(cuda_device, name):
+    n, parts, offset = HASH_PARTITION_EDGES[name]
+    rng = np.random.default_rng(len(name))
+    full = rng.integers(-(2**31), 2**31, n + offset).astype(np.int32)
+    keys = torch.from_numpy(full).to(cuda_device)[offset:]
+    assert keys.is_contiguous() and keys.storage_offset() == offset
+    before = _build.launches["hash_partition"]
+    part, hist = hash_partition_cuda(keys, parts)
+    assert _build.launches["hash_partition"] == before + 1
+    want = tref.hash_partition_ref(torch.from_numpy(full[offset:]), parts)
+    assert torch.equal(part.cpu(), want[0]) and torch.equal(hist.cpu(), want[1])
+    assert int(hist.sum()) == n
+
+
 #: (BH, Sq, Sk, D, causal): ragged Sq and Sk (not multiples of the 64-row
 #: tiles), Sq != Sk under the causal mask, BH = 1, and every head dim at
 #: each edge shape
@@ -267,21 +292,72 @@ def test_ssd_chunk_kernel_on_card(cuda_device, bh, s, p, n, chunk):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
+def ssd_edge_case(name):
+    """(x, dt, a, b, c) float32 CPU tensors and the chunk, for one named hazard
+    of the chunk-parallel scan, plus the storage offset (in elements) its
+    card copies start at."""
+    bh, s, p, n, chunk, a_val, offset = {
+        "p17-n33-chunk40": (2, 80, 17, 33, 40, None, 0),   # ragged tiles, odd rows
+        "chunk16-64-chunks": (2, 1024, 64, 128, 16, None, 0),   # a long state scan
+        "bh1": (1, 512, 64, 128, 256, None, 0),
+        "a0-no-decay": (2, 1024, 64, 64, 64, 0.0, 0),      # states grow over the chunks
+        "a-50-underflow": (2, 512, 64, 128, 256, -50.0, 0),
+        "one-chunk": (3, 256, 32, 64, 256, None, 0),
+        "offset-one-element": (2, 256, 64, 128, 64, None, 1),   # not 16-byte aligned
+        "offset-16-bytes": (2, 256, 64, 128, 64, None, 4),
+    }[name]
+    rng = np.random.default_rng(len(name) + bh * s)
+    a = (np.full(bh, a_val, np.float32) if a_val is not None
+         else -rng.uniform(0.5, 2.0, bh).astype(np.float32))
+    arrays = (rng.standard_normal((bh, s, p), dtype=np.float32),
+              rng.uniform(0.01, 0.2, (bh, s)).astype(np.float32), a,
+              rng.standard_normal((bh, s, n), dtype=np.float32),
+              rng.standard_normal((bh, s, n), dtype=np.float32))
+    return [torch.from_numpy(x) for x in arrays], chunk, offset
+
+
+def on_card_at_offset(t, device, offset):
+    """A contiguous card copy of t whose data starts ``offset`` elements into
+    its storage."""
+    buf = torch.empty((t.numel() + offset,), dtype=t.dtype, device=device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p17-n33-chunk40", "chunk16-64-chunks", "bh1", "a0-no-decay",
+                                  "a-50-underflow", "one-chunk", "offset-one-element",
+                                  "offset-16-bytes"])
+def test_ssd_chunk_kernel_edge_cases_on_card(cuda_device, name):
+    args, chunk, offset = ssd_edge_case(name)
+    card = [on_card_at_offset(t, cuda_device, offset) for t in args]
+    assert all(t.is_contiguous() and t.storage_offset() == offset for t in card)
+    before = _build.launches["ssd_chunk"]
+    got = ssd_chunk_cuda(*card, chunk)
+    assert _build.launches["ssd_chunk"] == before + 1
+    for g, w in zip(got, tref.ssd_chunked_ref(*args, chunk)):
+        g = g.cpu()
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
 @pytest.mark.cuda
 def test_ssd_chunk_kernel_refuses_what_shared_memory_cannot_hold(cuda_device):
-    """N = 4096 needs a 4096 x 68 fp32 state in shared memory, past what a
-    block can have: the launcher's error raises, and the next launch is
-    unaffected by it."""
+    """A chunk of 32768 steps needs its cum and decay weights (2 x 32768 fp32)
+    in one block's shared memory, past what a block can have: the launcher's
+    error raises, and the next launch is unaffected by it."""
     f32 = dict(dtype=torch.float32, device=cuda_device)
-    big = (torch.zeros((1, 16, 64), **f32), torch.full((1, 16), 0.1, **f32),
-           torch.full((1,), -1.0, **f32), torch.zeros((1, 16, 4096), **f32),
-           torch.zeros((1, 16, 4096), **f32))
+    s = 32768
+    big = (torch.zeros((1, s, 8), **f32), torch.full((1, s), 0.1, **f32),
+           torch.full((1,), -1.0, **f32), torch.zeros((1, s, 8), **f32),
+           torch.zeros((1, s, 8), **f32))
     before = _build.launches["ssd_chunk"]
     with pytest.raises(RuntimeError, match="ssd_chunk"):
-        ssd_chunk_cuda(*big, 16)
+        ssd_chunk_cuda(*big, s)
     assert _build.launches["ssd_chunk"] == before
-    small = [t[..., :32] if t.dim() == 3 else t for t in big]
-    small[0] = torch.ones((1, 16, 32), **f32)
+    small = [t[:, :16] for t in big[:2]] + [big[2]] + [t[:, :16] for t in big[3:]]
+    small[0] = torch.ones((1, 16, 8), **f32)
     y, state = ssd_chunk_cuda(*(t.contiguous() for t in small), 16)
     torch.cuda.synchronize()
     assert _build.launches["ssd_chunk"] == before + 1
