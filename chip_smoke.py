@@ -17,9 +17,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      zero-count tail, total > cap_out, one key owning every slot, runs of
      equal starts across stretches, N = 1, cap_out = 1, S = 4096; for
      hash_partition_pack 1024 tiles of look-back with one partition and
-     with 64, N off a multiple of 1024, P = 1 and the largest P);
+     with 64, N off a multiple of 1024, P = 1, the largest P of its
+     single-block kernel and the wide kernel's first, P = 384, 1024 and
+     4096);
      flash_attention at ragged and Sq != Sk shapes, BH = 1, causal and
-     not, head dims 16-128, within 1e-4 (f32) and, in bf16, within the
+     not, head dims 16-256, within 1e-4 (f32) and, in bf16, within the
      rounding error of the output and the weights
      (``ref.flash_attention_bf16_tolerance``); ssd_chunk at chunks
      16/64/256, one chunk and eight, and at its hazards (P = 17, N = 33,
@@ -51,9 +53,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (attention) SDPA, with TF32 off; for ssd_chunk and hash_partition also
      the device time and device operations per call (torch.profiler), and
      one line of hash_partition at N = 2^26, P = 64 beside its bound; and
-     bf16 attention at a second head dim (deepseek-moe-16b prefill, D = 128)
-     beside SDPA, in one log line;
-  then the ``kernels`` JSON line (six rows).
+     bf16 attention at two more head dims (deepseek-moe-16b prefill,
+     D = 128, and gemma3-12b prefill, D = 256) beside SDPA and the bound,
+     one log line each;
+  patterns: subgraph enumeration through ``JoinSession(p=64).submit_pattern``:
+     triangles of phase 3's graph against its oracle, the four cases of
+     benchmarks/bench_subgraph.py byte-equal to the brute-force oracle and
+     to the same session on the CPU, and 4-cliques of phase 3's graph
+     (halved while the cold submit overruns 120 s or the card's memory)
+     against an independent numpy oracle; kernel launches counted;
+  service: the async service on one card session: a coalesced mixed batch
+     (bench_service.py's three shapes, clique4 and cycle4 patterns, λ=16)
+     byte-identical to serial submits, 8 client threads x 32
+     ``submit_async`` requests resolved with the serial rows (queue-inclusive
+     p50/p99 logged), and one coalesced group under a FaultPlan that fails
+     one member's dispatch: that member alone fails, typed; kernel launches
+     counted;
+  then the ``kernels`` JSON line (six rows).  Phases 3-5 give its launch
+  counts; patterns and service run after them (phase 6 and 7 follow).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 
@@ -116,7 +133,10 @@ ATTN_WIDTHS = dict(batch=2, heads=32, kv_heads=8, seq=4096, head_dim=80)
 # a second width for bf16 attention, whose tile shapes depend on D:
 # deepseek-moe-16b (src/repro/configs/deepseek_moe_16b.py: 16 heads, MHA,
 # head_dim 128), one causal prefill of 4096 tokens, batch 2
-ATTN_WIDTHS_2 = dict(batch=2, heads=16, seq=4096, head_dim=128)
+ATTN_WIDTHS_2 = dict(batch=2, heads=16, seq=4096, head_dim=128, model="deepseek-moe-16b")
+# a third: gemma3-12b (src/repro/configs/gemma3_12b.py: 16 heads, head_dim
+# 256; its KV heads expanded), one causal prefill of 4096 tokens, batch 2
+ATTN_WIDTHS_3 = dict(batch=2, heads=16, seq=4096, head_dim=256, model="gemma3-12b")
 SSD_WIDTHS = dict(batch=4, heads=48, seq=4096, chunk=256, headdim=64, d_state=128)
 HASH_KEYS, HASH_PARTS = 2_000_000, 64
 HASH_KEYS_AT_SCALE = 1 << 26       # past the 50 MB L2
@@ -504,9 +524,10 @@ def hash_partition_pack_hazards(rng):
     """(name, keys, counts, P) at the look-back's hazards: 1024 tiles of
     look-back (N = 2^20) with every key in one partition and with 64
     partitions, N off a multiple of 1024 and N = 1, counts of 0 and N in one
-    batch, P = 1 and the largest P the wrapper takes, one tile per segment
-    over 4096 segments."""
-    from repro_torch.kernels.hash_partition import MAX_PARTS as p_max
+    batch, P = 1 and the largest P of the single-block kernel, one tile per
+    segment over 4096 segments; then the wide kernel's first P, and P = 384,
+    1024 (single block, past the old limit of 383) and 4096 (wide)."""
+    from repro_torch.kernels.hash_partition import MAX_SMEM_PARTS as p_max
 
     keys = lambda s, n: rng.integers(-(2**31), 2**31, (s, n)).astype(np.int32)
     full = lambda s, n: np.full(s, n, np.int32)
@@ -521,6 +542,13 @@ def hash_partition_pack_hazards(rng):
         ("P=1", keys(4, 3000), full(4, 3000), 1),
         (f"P={p_max}", keys(4, 9000), rng.integers(0, 9001, 4).astype(np.int32), p_max),
         ("S=4096 one tile", keys(4096, 1024), rng.integers(0, 1025, 4096).astype(np.int32), 64),
+        (f"P={p_max + 1} (wide)", keys(4, 9000), rng.integers(0, 9001, 4).astype(np.int32),
+         p_max + 1),
+        ("P=384", keys(8, 5000), rng.integers(0, 5001, 8).astype(np.int32), 384),
+        ("P=1024", keys(8, 5000), rng.integers(0, 5001, 8).astype(np.int32), 1024),
+        ("P=4096 (wide)", keys(8, 5000), rng.integers(0, 5001, 8).astype(np.int32), 4096),
+        ("P=4096 N=2^20 (wide)", keys(4, 1 << 20), rng.integers(0, (1 << 20) + 1, 4)
+         .astype(np.int32), 4096),
     ]
 
 
@@ -652,7 +680,8 @@ def phase_triangle(torch, session, n_vertices, n_edges, skew, seed, lam, tag) ->
     rounds = set(cold["res"].result.round_us)
     log(f"[{tag}] ok: {want} triangles; cold {cold['wall_s']:.3f} s, warm "
         f"{warm['wall_s']:.3f} s; rounds {sorted(rounds)}")
-    return {"cold": cold, "warm": warm, "rounds": rounds, "query": q}
+    return {"cold": cold, "warm": warm, "rounds": rounds, "query": q, "edges": edges,
+            "n_vertices": n_vertices, "oriented": oriented, "oracle": want}
 
 
 def phase_profile(torch, session, query, lam) -> None:
@@ -817,6 +846,7 @@ def phase_timing(torch, capture: InputCapture, launches: dict) -> list:
         out.append(row)
         torch.cuda.empty_cache()
     pack_at_scale(torch, hp)
+    pack_many_parts(torch, hp)
     return out
 
 
@@ -847,6 +877,41 @@ def pack_at_scale(torch, hp) -> None:
             f"{dev:.4f} ms and {ops:g} operations per call, bound {bound_ms:.4f} ms ({nbytes} "
             f"bytes), equal to its plain version")
     log(f"{text}; medians of 5 rounds, range ms: {spread}")
+    del keys, counts
+    torch.cuda.empty_cache()
+
+
+def pack_many_parts(torch, hp) -> None:
+    """hash_partition_pack at the main path's S=64, N=16384 with P = 1024
+    (the single-block kernel, past the old limit of 383) and P = 4096 (the
+    wide kernel), each checked against its plain version and timed beside
+    its byte bound (log lines; not rows of the ``kernels`` line)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hash_partition import MAX_SMEM_PARTS
+
+    s, n = 64, 16384
+    rng = np.random.default_rng(4)
+    keys = torch.from_numpy(rng.integers(-(2**31), 2**31, (s, n)).astype(np.int32)).cuda()
+    counts = torch.from_numpy(rng.integers(n - n // 8, n + 1, s).astype(np.int32)).cuda()
+    for parts in (1024, 4096):
+        kern = lambda: hp.hash_partition_pack_cuda(keys, counts, parts)
+        got = kern()
+        torch.cuda.synchronize()
+        for g, w in zip(got, ref.hash_partition_pack_ref(keys, counts, parts)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"hash_partition_pack S={s} N={n} P={parts}: kernel differs")
+        del got
+        med, spread = time_rounds(torch, kern, lambda: ref.hash_partition_pack_ref(
+            keys, counts, parts), None)
+        dev, ops, names = device_ms(torch, kern)
+        nbytes = 12 * s * n + 4 * s + 4 * s * parts
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        path = "wide" if parts > MAX_SMEM_PARTS else "single-block"
+        log(f"[timing] hash_partition_pack {path} kernel S={s} N={n} P={parts}: kernel "
+            f"{med['kernel']:.4f} ms, plain {med['plain']:.4f} ms, device {dev:.4f} ms and "
+            f"{ops:g} operations per call ({', '.join(names)}), bound {bound_ms:.4f} ms "
+            f"({nbytes} bytes), equal to its plain version; medians of 5 rounds, range ms: "
+            f"{spread}")
     del keys, counts
     torch.cuda.empty_cache()
 
@@ -1171,7 +1236,8 @@ def phase_library(torch, dev) -> list:
     del ssd_args, keys32, keys64, folded, q, k, v
     torch.cuda.empty_cache()
     hash_partition_at_scale(torch, rng)
-    attention_second_width(torch, dev, rng)
+    attention_other_width(torch, dev, rng, ATTN_WIDTHS_2)
+    attention_other_width(torch, dev, rng, ATTN_WIDTHS_3)
     return rows
 
 
@@ -1204,12 +1270,13 @@ def hash_partition_at_scale(torch, rng) -> None:
     torch.cuda.empty_cache()
 
 
-def attention_second_width(torch, dev, rng) -> None:
-    """bf16 flash_attention at ``ATTN_WIDTHS_2``, held to the bf16 limit and
-    timed beside SDPA (one log line; not a row of the ``kernels`` line)."""
+def attention_other_width(torch, dev, rng, widths) -> None:
+    """bf16 flash_attention at another model's width (``ATTN_WIDTHS_2``,
+    ``ATTN_WIDTHS_3``), held to the bf16 limit and timed beside SDPA (one log
+    line; not a row of the ``kernels`` line)."""
     from repro_torch.kernels import ops
 
-    batch, heads, seq, hd = (ATTN_WIDTHS_2[k] for k in ("batch", "heads", "seq", "head_dim"))
+    batch, heads, seq, hd = (widths[k] for k in ("batch", "heads", "seq", "head_dim"))
     q, k, v = (torch.from_numpy(rng.standard_normal((batch * heads, seq, hd), dtype=np.float32))
                .to(dev).to(torch.bfloat16) for _ in range(3))
     out = ops.flash_attention(q, k, v, causal=True)
@@ -1223,12 +1290,322 @@ def attention_second_width(torch, dev, rng) -> None:
     flops = 4 * hd * batch * heads * seq * (seq + 1) // 2
     nbytes = 2 * 4 * q.numel()
     bound_ms = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    log(f"[library] flash_attention at deepseek-moe-16b prefill BH={batch * heads} S={seq} "
+    log(f"[library] flash_attention at {widths['model']} prefill BH={batch * heads} S={seq} "
         f"D={hd} bf16 causal: kernel {med['kernel']:.4f} ms, SDPA {med['library']:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({flops:.4g} FLOP); max |err| {check['max_abs_err']:.3g} "
         f"({check['limit_used']:.3f} of the bf16 limit); medians of 5 rounds, range ms: "
         f"{spread}")
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Subgraph enumeration and the async service (``submit_pattern``,
+# ``submit_coalesced``, ``submit_async``)
+# ---------------------------------------------------------------------------
+
+#: the cold clique4 submit's budget on the 2M-edge graph: past it (or out of
+#: device memory) the edge count halves, with the same generator
+CLIQUE4_BUDGET_S = 120.0
+
+
+def subgraph_cases():
+    """The four cases of benchmarks/bench_subgraph.py (same seeds, the port's
+    generators): (name, graph, pattern, lambda)."""
+    from repro_torch.graph import clique, cycle, erdos_renyi, triangle
+    from repro_torch.graph import zipf_graph as port_zipf_graph
+
+    zipf12k = port_zipf_graph(np.random.default_rng(42), 5000, 12000, skew=0.9)
+    er2k = erdos_renyi(np.random.default_rng(7), 800, 2400)
+    hubby = port_zipf_graph(np.random.default_rng(11), 150, 700, skew=2.0)
+    return [("triangle-zipf12k", zipf12k, triangle(), 8),
+            ("clique4-zipf12k", zipf12k, clique(4), 2),
+            ("cycle4-er2k", er2k, cycle(4), 4),
+            ("triangle-hubs", hubby, triangle(), 24)]
+
+
+def in_ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The concatenation of arange(s, s + l) over (s, l) pairs."""
+    total = int(lens.sum())
+    offs = np.repeat(starts - np.cumsum(lens) + lens, lens)
+    return offs + np.arange(total, dtype=np.int64)
+
+
+def clique4_oracle(oriented: np.ndarray, n_vertices: int, chunk: int = 1 << 22) -> int:
+    """4-cliques of the graph whose edges ``oriented`` lists once each (lower
+    to higher rank), independent of the join engine: every oriented triangle
+    (a, b, c) adds |N+(a) ∩ N+(b) ∩ N+(c)|, so each 4-clique counts once, at
+    its three lowest vertices.  Triangles come from the oriented 2-paths
+    a→b→c closed by a→c; membership is a binary search of the sorted edge
+    codes a·n + c.  Processed in slices of about ``chunk`` candidates."""
+    src, dst = oriented[:, 0].astype(np.int64), oriented[:, 1].astype(np.int64)
+    n = np.int64(n_vertices)
+    codes = src * n + dst                      # sorted: the rows are
+    indptr = np.searchsorted(src, np.arange(n_vertices + 1))
+    outdeg = np.diff(indptr)
+
+    def member(x):
+        pos = np.minimum(np.searchsorted(codes, x), codes.size - 1)
+        return codes[pos] == x
+
+    def expand(a_rows, via, budget):
+        """Yield (rows repeated per out-neighbour of via, those neighbours)."""
+        lens = outdeg[via]
+        csum = np.cumsum(lens)
+        start = 0
+        while start < via.size:
+            stop = int(np.searchsorted(csum, (csum[start - 1] if start else 0) + budget,
+                                       side="right"))
+            stop = max(stop, start + 1)
+            sl = slice(start, stop)
+            nbr = dst[in_ranges(indptr[via[sl]], lens[sl])]
+            yield tuple(np.repeat(r[sl], lens[sl]) for r in a_rows), nbr
+            start = stop
+
+    total = 0
+    for (a, b), c in expand((src, dst), dst, chunk):
+        keep = member(a * n + c)
+        a, b, c = a[keep], b[keep], c[keep]
+        for (ta, tb), d in expand((a, b), c, chunk):
+            total += int((member(ta * n + d) & member(tb * n + d)).sum())
+    return total
+
+
+def submit_pattern_timed(torch, session, pattern, graph, lam=None):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = session.submit_pattern(pattern, graph, lam=lam)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def check_path_launches(tag: str) -> dict:
+    """The join kernels' launches since the last ``reset_counts``; fails if
+    one of them never launched."""
+    launches = launch_counts(JOIN_KERNELS)
+    log(f"[{tag}] kernel launches: {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name}: no launch on the {tag} path")
+    return launches
+
+
+def phase_patterns(torch, session, main3) -> dict:
+    """Subgraph enumeration through ``session.submit_pattern`` (p=64):
+    (a) triangles of phase 3's 2M-edge graph against phase 3's oracle;
+    (b) the four cases of benchmarks/bench_subgraph.py, byte-equal to the
+    brute-force oracle and to a p=64 session on the CPU; (c) 4-cliques of
+    phase 3's graph (halved while the cold submit overruns its budget or the
+    card's memory) against ``clique4_oracle``."""
+    from repro_torch.graph import Graph, brute_force_occurrences, clique, triangle
+    from repro_torch.mpc import JoinSession, QueryFailedError
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    out = {}
+    graph = Graph.from_edges(main3["edges"], n_vertices=main3["n_vertices"])
+    cold, cold_s = submit_pattern_timed(torch, session, triangle(), graph)
+    warm, warm_s = submit_pattern_timed(torch, session, triangle(), graph)
+    if not cold.count == warm.count == main3["oracle"]:
+        raise AssertionError(f"patterns: triangle counts {cold.count}/{warm.count} != "
+                             f"oracle {main3['oracle']}")
+    if cold.occurrences.tobytes() != warm.occurrences.tobytes():
+        raise AssertionError("patterns: warm triangle occurrences differ from cold")
+    log(f"[patterns] triangle on the {graph.n_edges}-edge graph: {cold.count} occurrences "
+        f"= phase 3's oracle; cold {cold_s:.3f} s, warm {warm_s:.3f} s, warm retries "
+        f"{warm.engine.retries}, warm learned-caps hits {warm.engine.caps_hits}")
+    out["triangle-2M"] = {"count": cold.count, "cold_s": cold_s, "warm_s": warm_s}
+    del cold, warm
+
+    cpu = JoinSession(p=64, device="cpu")
+    for name, g, pat, lam in subgraph_cases():
+        t0 = time.perf_counter()
+        brute = brute_force_occurrences(g, pat)
+        brute_s = time.perf_counter() - t0
+        res, cold_s = submit_pattern_timed(torch, session, pat, g, lam)
+        res_w, warm_s = submit_pattern_timed(torch, session, pat, g, lam)
+        plain = cpu.submit_pattern(pat, g, lam=lam)
+        for label, other in (("brute force", brute), ("the CPU session", plain.occurrences),
+                             ("the warm submit", res_w.occurrences)):
+            if res.occurrences.tobytes() != other.tobytes() or res.occurrences.shape != other.shape:
+                raise AssertionError(f"patterns {name}: occurrences differ from {label}")
+        log(f"[patterns] {name} (lambda={lam}, {g.n_edges} edges): {res.count} occurrences, "
+            f"{res.embeddings} embeddings, byte-equal to brute force, the CPU session and the "
+            f"warm submit; cold {cold_s:.3f} s, warm {warm_s:.3f} s (brute force "
+            f"{brute_s:.1f} s on the host), warm retries {res_w.engine.retries}")
+        out[name] = {"count": res.count, "cold_s": cold_s, "warm_s": warm_s}
+
+    n_edges = main3["edges"].shape[0]
+    while True:
+        if n_edges == main3["edges"].shape[0]:
+            edges, oriented = main3["edges"], main3["oriented"]
+        else:
+            edges = zipf_graph(np.random.default_rng(0), main3["n_vertices"], n_edges, 0.9)
+            oriented = orient_by_degree(edges, main3["n_vertices"])
+        g = Graph.from_edges(edges, n_vertices=main3["n_vertices"])
+        try:
+            res, cold_s = submit_pattern_timed(torch, session, clique(4), g)
+        except QueryFailedError as e:
+            if not isinstance(e.cause, torch.cuda.OutOfMemoryError):
+                raise
+            log(f"[patterns] clique4 on {g.n_edges} edges ran out of device memory: halving")
+            torch.cuda.empty_cache()
+            n_edges //= 2
+            continue
+        if cold_s > CLIQUE4_BUDGET_S:
+            log(f"[patterns] clique4 on {g.n_edges} edges: cold submit {cold_s:.1f} s is past "
+                f"its {CLIQUE4_BUDGET_S:.0f} s budget: halving")
+            n_edges //= 2
+            continue
+        break
+    t0 = time.perf_counter()
+    want = clique4_oracle(oriented, main3["n_vertices"])
+    oracle_s = time.perf_counter() - t0
+    if res.count != want:
+        raise AssertionError(f"patterns: clique4 count {res.count} != oracle {want}")
+    log(f"[patterns] clique4 on the {g.n_edges}-edge graph ({main3['n_vertices']} vertices, "
+        f"zipf 0.9, seed 0): {res.count} occurrences = the numpy oracle ({oracle_s:.1f} s on "
+        f"the host); cold {cold_s:.3f} s, {res.embeddings} embeddings, retries "
+        f"{res.engine.retries}")
+    out["clique4"] = {"edges": g.n_edges, "count": res.count, "cold_s": cold_s}
+    del res
+    out["launches"] = check_path_launches("patterns")
+    log(f"[patterns] ok in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def perm_query(seed: int, n: int):
+    """(A,B) ⋈ (B,C) over two permutations: no heavy values, so seeds give
+    distinct data behind one plan key (one coalesce group)."""
+    from repro_torch.core.query import query_from_arrays
+
+    rng = np.random.default_rng(seed)
+    ab = np.stack([np.arange(n), rng.permutation(n)], axis=1)
+    bc = np.stack([np.arange(n), rng.permutation(n)], axis=1)
+    return query_from_arrays([(("A", "B"), ab, None), (("B", "C"), bc, None)])
+
+
+#: λ of the service phase's batches (one for a whole coalesced batch): the
+#: triangle-hub shape's in bench_service.py, at which its hub and the star's
+#: are heavy, so the mix runs HashPartition and SemiJoin stages too
+SERVICE_LAM = 16
+
+
+def service_queries():
+    """The mixed workload of benchmarks/bench_service.py (triangle-hub,
+    star-hub-cp, disconnected) and two patterns compiled to queries: clique4
+    over bench_subgraph.py's skewed "hubs" graph and cycle4 over its ER
+    graph: (name, query)."""
+    from repro_torch.core.query import disconnected_query, hub_star_query, hub_triangle_query
+    from repro_torch.graph import compile_pattern, clique, cycle
+
+    graphs = {name: g for name, g, _, _ in subgraph_cases()}
+    return [("triangle-hub", hub_triangle_query(n=300, hub_n=80, dom_size=40, hub=10_000)),
+            ("star-hub-cp", hub_star_query(n=90, hub_n=40, dom_size=25)),
+            ("disconnected", disconnected_query(120, dom_size=14, skew=1.8)),
+            ("clique4-hubs", compile_pattern(graphs["triangle-hubs"], clique(4)).query),
+            ("cycle4-er2k", compile_pattern(graphs["cycle4-er2k"], cycle(4)).query)]
+
+
+def same_rows(a, b) -> bool:
+    return (a.count == b.count and a.per_h_counts == b.per_h_counts
+            and a.rows.dtype == b.rows.dtype and a.rows.tobytes() == b.rows.tobytes())
+
+
+def phase_service(torch, device="cuda", clients: int = 8, per_client: int = 32,
+                  perm_rows: int = 20000) -> dict:
+    """The async service on one card session (p=64, λ = ``SERVICE_LAM``): a
+    coalesced mixed batch byte-identical to serial submits;
+    ``clients`` threads × ``per_client`` ``submit_async`` requests, every
+    future resolved with the serial rows (queue-inclusive p50/p99 logged);
+    one coalesced group under a FaultPlan that fails one member's dispatch:
+    that member fails alone with QueryFailedError, its batchmates stay
+    byte-identical, and the session is not degraded."""
+    import threading
+
+    from repro_torch.mpc import FaultPlan, FaultRule, JoinSession, QueryFailedError
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    named = service_queries()
+    serial_session = JoinSession(p=64, device=device)
+    serial = {}
+    for name, q in named:
+        serial[name] = serial_session.submit(q, lam=SERVICE_LAM)
+        log(f"[service] serial {name}: {serial[name].count} rows, "
+            f"{serial[name].total_us / 1e3:.1f} ms cold")
+
+    session = JoinSession(p=64, device=device)
+    for rnd in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = session.submit_coalesced([q for _, q in named], lam=SERVICE_LAM)
+        wall = time.perf_counter() - t0
+        for (name, _), r in zip(named, outs):
+            if not same_rows(r, serial[name]):
+                raise AssertionError(f"service: coalesced {name} differs from serial")
+        log(f"[service] submit_coalesced of {len(named)} queries ({rnd}): {wall:.3f} s, "
+            f"byte-identical to serial submits")
+
+    results, errors = {}, []
+
+    def client(c):
+        try:
+            futs = [(i, session.submit_async(named[(c + i) % len(named)][1], lam=SERVICE_LAM))
+                    for i in range(per_client)]
+            for i, f in futs:
+                results[(c, i)] = f.result(timeout=600)
+        except BaseException as e:      # raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"service: async clients failed or hung: {errors[:1]}")
+    if len(results) != clients * per_client:
+        raise AssertionError(f"service: {len(results)} of {clients * per_client} futures")
+    for (c, i), r in results.items():
+        name = named[(c + i) % len(named)][0]
+        if not same_rows(r, serial[name]):
+            raise AssertionError(f"service: async {name} differs from serial")
+    p50, p99 = (session.stats.percentile(q, window="e2e") / 1e3 for q in (50, 99))
+    log(f"[service] submit_async: {clients} clients x {per_client} requests in {wall:.3f} s "
+        f"({clients * per_client / wall:.1f} queries/s), every future resolved with the serial "
+        f"rows; queue-inclusive latency p50 {p50:.1f} ms, p99 {p99:.1f} ms; "
+        f"{session.stats.coalesced_batches} coalesced batches, largest "
+        f"{session.stats.max_coalesced_batch}, deduped {session.stats.deduped}, retries "
+        f"{session.stats.retries}")
+    session.close()
+
+    perms = [perm_query(seed, perm_rows) for seed in (10, 11, 12, 13)]
+    perm_serial = [serial_session.submit(q, lam=SERVICE_LAM) for q in perms]
+    faulty = JoinSession(p=64, device=device, async_autostart=False,
+                         fault_plan=FaultPlan([FaultRule(site="dispatch", rate=1.0, count=2)]))
+    futs = [faulty.submit_async(q, lam=SERVICE_LAM) for q in perms]
+    faulty.close()          # one inline drain batch: one coalesced group
+    outs = []
+    for f in futs:
+        try:
+            outs.append(f.result(timeout=0))
+        except BaseException as e:
+            outs.append(e)
+    if not isinstance(outs[0], QueryFailedError) or outs[0].query is not perms[0]:
+        raise AssertionError(f"service: the poisoned member resolved with {outs[0]!r}")
+    for r, want in zip(outs[1:], perm_serial[1:]):
+        if isinstance(r, BaseException) or not same_rows(r, want):
+            raise AssertionError(f"service: a batchmate of the poisoned member: {r!r}")
+    if faulty.degraded or faulty.stats.degraded_fallbacks != 1 or faulty.stats.failed != 1:
+        raise AssertionError("service: the fault left the session degraded or miscounted")
+    log(f"[service] fault plan failing one member's dispatch: it resolved with "
+        f"QueryFailedError, its 3 batchmates byte-identical to serial, session not degraded "
+        f"({faulty.fault_plan.injected['dispatch']} injected, 1 serial fallback)")
+    launches = check_path_launches("service")
+    log(f"[service] ok in {time.perf_counter() - t_phase:.1f} s")
+    return {"p50_ms": p50, "p99_ms": p99, "async_wall_s": wall, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -1252,12 +1629,19 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    env = phase_env(torch)
+
+    def timed(label, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+        return res
+
+    env = timed("phase 1 (environment and build)", phase_env, torch)
     log("[env] TF32 off: torch.backends.cuda.matmul.allow_tf32 = "
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 = "
         f"{torch.backends.cudnn.allow_tf32}")
-    phase_kernels(torch, dev)
-    phase_library_kernels(torch, dev)
+    timed("phase 2 (join kernels)", phase_kernels, torch, dev)
+    timed("phase 2 (library kernels)", phase_library_kernels, torch, dev)
 
     from repro_torch.mpc import JoinSession
 
@@ -1265,13 +1649,15 @@ def main(argv=None) -> int:
     capture.install()
     reset_counts()
     session = JoinSession(p=64)
-    main3 = phase_triangle(torch, session, 500_000, 2_000_000, 0.9, 0, None, "triangle-2M")
-    heavy = phase_triangle(torch, session, 100_000, 300_000, 1.5, 1, 24, "heavy")
+    main3 = timed("phase 3", phase_triangle, torch, session, 500_000, 2_000_000, 0.9, 0, None,
+                  "triangle-2M")
+    heavy = timed("phase 4", phase_triangle, torch, session, 100_000, 300_000, 1.5, 1, 24,
+                  "heavy")
     # round_us holds only rounds that dispatched work: HashPartition is
     # "step2-unary", SemiJoin "step2-bx"/"step2-by"
     if not {"step2-unary", "step2-bx"} <= heavy["rounds"]:
         raise AssertionError(f"heavy graph ran no HashPartition/SemiJoin: {heavy['rounds']}")
-    phase_parity(torch)
+    timed("phase 5", phase_parity, torch)
     launches = launch_counts(JOIN_KERNELS)
     capture.remove()
     log(f"[main] kernel launches over phases 3-5: {json.dumps(launches)}")
@@ -1280,11 +1666,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name}: no launch on the main path")
     if args.profile:
         phase_profile(torch, session, main3["query"], None)
+    timed("phase patterns", phase_patterns, torch, session, main3)
+    timed("phase service", phase_service, torch)
 
     del session, main3, heavy
     torch.cuda.empty_cache()
-    rows = phase_timing(torch, capture, launches)
-    rows += phase_library(torch, dev)
+    rows = timed("phase 6", phase_timing, torch, capture, launches)
+    rows += timed("phase 7", phase_library, torch, dev)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(f"{env['smi']}")
     print(json.dumps({"kernels": rows}))

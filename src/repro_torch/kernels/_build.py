@@ -34,6 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LAUNCHERS = {
     "hash_partition_pack_launch": (
         [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P], "hash_partition"),
+    "hash_partition_pack_wide_launch": (
+        [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P], "hash_partition"),
     "hash_partition_launch": ([_P, _I, _I, _P, _P, _P], "hash_partition"),
     "merge_join_counts_launch": ([_P, _P, _I, _I, _I, _P, _P, _P], "merge_join"),
     "merge_join_pairs_launch": ([_P, _P, _I, _I, _I, _P, _P, _P], "merge_join"),
@@ -46,8 +48,10 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 #: launches per kernel name since the last ``launches.clear()``: each wrapper
-#: adds one where it launches its kernel, and nowhere else
+#: adds one where it launches its kernel, and nowhere else (a session's
+#: drainer thread launches too, so additions hold ``_count_lock``)
 launches: Counter = Counter()
+_count_lock = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -128,4 +132,5 @@ def launched(name: str, rc: int) -> None:
     """Raise if a launcher reported a CUDA error, else count one launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1

@@ -44,15 +44,19 @@
 //     D the wrapper takes (D = 80: 176-byte rows);
 //   - the output goes through shared memory for coalesced 16-byte stores.
 //   Shared memory: 5 tiles of 64 × (D + 8) bf16 (Q, two K, two V), 56 KB at
-//   D = 80 and 85 KB at D = 128; __launch_bounds__ asks for registers that
-//   let two blocks share an SM at every D.
+//   D = 80, 85 KB at D = 128 and 165 KB at D = 256; __launch_bounds__ asks
+//   for registers that let two blocks share an SM up to D = 128.  At
+//   D = 256 one block fills an SM's shared memory, the 16×256 fp32 output
+//   accumulator takes 128 registers a lane, and the Q fragments are
+//   reloaded from shared memory at every k16 step rather than held.
 //
-// float32 (`flash_fwd_f32`) stays on the fp32 FMA pipes: one block of 64
-// threads per 64-row q tile, one thread per q row, with the row's scores and
-// its D accumulators in registers and 32-key K/V tiles broadcast from shared
-// memory.  The tensor cores' fp32 input type, TF32, keeps 10 mantissa bits
-// (about 3 decimal digits) and would break the float32 limit of
-// 1e-4 + 1e-4·|plain|.
+// float32 (`flash_fwd_f32`) stays on the fp32 FMA pipes: one block per
+// 64-row q tile, one thread per q row up to D = 128 (four at D = 256, each
+// with a quarter of the columns and the row's scores summed by shuffles),
+// with the row's scores and its accumulators in registers and 32-key K/V
+// tiles broadcast from shared memory (162 KB at D = 256).  The tensor
+// cores' fp32 input type, TF32, keeps 10 mantissa bits (about 3 decimal
+// digits) and would break the float32 limit of 1e-4 + 1e-4·|plain|.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -122,7 +126,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Fragment layout of an m16n8 fp32 accumulator: lane = 4·g + c holds rows g
 // (elements 0, 1) and g + 8 (elements 2, 3), columns 2c and 2c + 1.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTcThreads, D <= 128 ? 2 : 1)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out, int sq, int sk, int causal,
              float scale) {
@@ -131,6 +135,11 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kKD = D / 16;      // k16 steps of Q·Kᵀ
   constexpr int kND = D / 8;       // n8 tiles of the output
   constexpr int kChunks = D / 8;   // 16-byte chunks per row
+  // Q fragments stay in registers up to D = 128; above, the 16×D output
+  // accumulator alone takes D/2 registers a lane, so each k16 step reloads
+  // its Q fragment from the staged tile instead (q_s is only overwritten
+  // by the output after the key sweep)
+  constexpr bool kQRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);   // (kTcBQ, kS), later the output tile
   bf16* k_s = q_s + kTcBQ * kS;                // 2 × (kBK, kS)
@@ -174,7 +183,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // ldmatrix x4 row addresses: lane l feeds row l & 7 of matrix l >> 3
   const int lm_r = lane & 7, lm_m = lane >> 3;
-  uint32_t qf[kKD][4];
+  uint32_t qf[kQRegs ? kKD : 1][4];
+  auto q_frag = [&](int kk) {
+    return smem_u32(q_s + (warp * 16 + (lm_m & 1) * 8 + lm_r) * kS + kk * 16 + (lm_m >> 1) * 8);
+  };
   float o[kND][4];
 #pragma unroll
   for (int n = 0; n < kND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -190,11 +202,11 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    if constexpr (kQRegs) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kKD; ++kk)
-        ldsm_x4(smem_u32(q_s + (warp * 16 + (lm_m & 1) * 8 + lm_r) * kS
-                         + kk * 16 + (lm_m >> 1) * 8), qf[kk]);
+        for (int kk = 0; kk < kKD; ++kk) ldsm_x4(q_frag(kk), qf[kk]);
+      }
     }
     const bf16* ks = k_s + (kt & 1) * kBK * kS;
     const bf16* vs = v_s + (kt & 1) * kBK * kS;
@@ -205,13 +217,20 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm_x4(q_frag(kk), qa);
+      }
 #pragma unroll
       for (int jp = 0; jp < kBK / 16; ++jp) {
         uint32_t b[4];
         ldsm_x4(smem_u32(ks + (jp * 16 + (lm_m >> 1) * 8 + lm_r) * kS
                          + kk * 16 + (lm_m & 1) * 8), b);
-        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[2 * jp], qa, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
       }
     }
 
@@ -309,45 +328,59 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // float32: fp32 FMA pipes
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;            // q rows per block == threads per block
+constexpr int kBQ = 64;            // q rows per block
 constexpr int kF32BK = 32;         // keys per staged K/V tile
 constexpr int kPS = kF32BK + 1;    // padded row stride of the p tile
 
+// kSplit threads share a q row: each holds D / kSplit of its accumulators
+// (interleaved 4-float chunks, so the row's lanes read neighbouring bytes)
+// and the row's partial scores are summed over those lanes by shuffles.
+// One thread per row up to D = 128; at D = 256 four, whose 64 accumulators
+// fit in registers where 256 would spill.
+template <int D>
+constexpr int kF32Split = D <= 128 ? 1 : 4;
+
 template <int D>
 constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 4) + kBQ * kPS + 2 * kF32BK * D);
+  return sizeof(float) *
+         (kBQ * (D + 4) + kBQ * kF32Split<D> * kPS + 2 * kF32BK * D);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBQ)
+__global__ void __launch_bounds__(kBQ * kF32Split<D>)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, int sq, int sk,
               int causal, float scale) {
   static_assert(D % 4 == 0, "D must be a multiple of 4");
+  constexpr int kSplit = kF32Split<D>;
+  constexpr int kThreads = kBQ * kSplit;
+  constexpr int kCh = D / 4 / kSplit;                          // float4 chunks per thread
+  static_assert(D % (4 * kSplit) == 0, "D must split evenly over a row's threads");
   constexpr int kQS = D + 4;                                   // padded q row stride
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);                 // (kBQ, kQS)
-  float* p_s = q_s + kBQ * kQS;                                // (kBQ, kPS)
-  float* k_s = p_s + kBQ * kPS;                                // (kF32BK, D)
+  float* p_s = q_s + kBQ * kQS;                                // (kThreads, kPS)
+  float* k_s = p_s + kThreads * kPS;                           // (kF32BK, D)
   float* v_s = k_s + kF32BK * D;                               // (kF32BK, D)
 
   const int tid = threadIdx.x;
+  const int r_loc = tid / kSplit, sub = tid % kSplit;          // the thread's row and share
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;           // heaviest tiles first
   const int64_t bh = blockIdx.y;
   const int rows = min(kBQ, sq - q0);
-  const int row = q0 + tid;
+  const int row = q0 + r_loc;
 
   const float* qb = q + (bh * sq + q0) * D;
-  for (int i = tid; i < kBQ * D / 4; i += kBQ) {
+  for (int i = tid; i < kBQ * D / 4; i += kThreads) {
     const int r = (4 * i) / D, c = (4 * i) % D;
     *reinterpret_cast<float4*>(q_s + r * kQS + c) =
         r < rows ? *reinterpret_cast<const float4*>(qb + r * D + c)
                  : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  float acc[D];
+  float acc[4 * kCh];                                          // chunk t: columns 4·(sub + kSplit·t)
 #pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
+  for (int c = 0; c < 4 * kCh; ++c) acc[c] = 0.f;
   float m = kMasked, l = 0.f;
 
   int n_kt = (sk + kF32BK - 1) / kF32BK;
@@ -358,7 +391,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                                           // last tile's readers are done
     const float* kb = k + (bh * sk + k0) * D;
     const float* vb = v + (bh * sk + k0) * D;
-    for (int i = tid; i < kF32BK * D / 4; i += kBQ) {
+    for (int i = tid; i < kF32BK * D / 4; i += kThreads) {
       const int r = (4 * i) / D;
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
       reinterpret_cast<float4*>(k_s)[i] = r < kn ? reinterpret_cast<const float4*>(kb)[i] : zero;
@@ -370,8 +403,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kF32BK; ++j) s[j] = 0.f;
 #pragma unroll 1
-    for (int c = 0; c < D; c += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(q_s + tid * kQS + c);
+    for (int t = 0; t < kCh; ++t) {
+      const int c = 4 * (sub + kSplit * t);
+      const float4 qv = *reinterpret_cast<const float4*>(q_s + r_loc * kQS + c);
 #pragma unroll
       for (int j = 0; j < kF32BK; ++j) {
         const float4 kv = *reinterpret_cast<const float4*>(k_s + j * D + c);
@@ -380,6 +414,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         s[j] = fmaf(qv.z, kv.z, s[j]);
         s[j] = fmaf(qv.w, kv.w, s[j]);
       }
+    }
+#pragma unroll
+    for (int off = 1; off < kSplit; off <<= 1) {               // a row's lanes are neighbours
+#pragma unroll
+      for (int j = 0; j < kF32BK; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
     }
 
     float m_new = m;
@@ -399,29 +438,35 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     l = l * corr + p_sum;
     m = m_new;
 #pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= corr;
+    for (int c = 0; c < 4 * kCh; ++c) acc[c] *= corr;
 #pragma unroll 1
     for (int j = 0; j < kn; ++j) {
       const float p = p_s[tid * kPS + j];
 #pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(v_s + j * D + c);
-        acc[c] = fmaf(p, vv.x, acc[c]);
-        acc[c + 1] = fmaf(p, vv.y, acc[c + 1]);
-        acc[c + 2] = fmaf(p, vv.z, acc[c + 2]);
-        acc[c + 3] = fmaf(p, vv.w, acc[c + 3]);
+      for (int t = 0; t < kCh; ++t) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(v_s + j * D + 4 * (sub + kSplit * t));
+        acc[4 * t] = fmaf(p, vv.x, acc[4 * t]);
+        acc[4 * t + 1] = fmaf(p, vv.y, acc[4 * t + 1]);
+        acc[4 * t + 2] = fmaf(p, vv.z, acc[4 * t + 2]);
+        acc[4 * t + 3] = fmaf(p, vv.w, acc[4 * t + 3]);
       }
     }
   }
 
-  // each thread parks its normalised row in its own q_s row, then the block
-  // writes the tile out row-major
+  // each thread parks its share of the normalised row in its row of q_s
+  // (read only by the row's own threads), then the block writes the tile
+  // out row-major
   const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int c = 0; c < D; ++c) q_s[tid * kQS + c] = acc[c] / den;
+  for (int t = 0; t < kCh; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      q_s[r_loc * kQS + 4 * (sub + kSplit * t) + e] = acc[4 * t + e] / den;
+  }
   __syncthreads();
   float* ob = out + (bh * sq + q0) * D;
-  for (int i = tid; i < rows * D; i += kBQ) ob[i] = q_s[(i / D) * kQS + i % D];
+  for (int i = tid; i < rows * D; i += kThreads) ob[i] = q_s[(i / D) * kQS + i % D];
 }
 
 // ---------------------------------------------------------------------------
@@ -457,7 +502,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int bh, i
   const cudaError_t err = allow_smem(flash_fwd_f32<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_fwd_f32<D><<<grid, kBQ, smem, st>>>(
+  flash_fwd_f32<D><<<grid, kBQ * kF32Split<D>, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), sq, sk, causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -474,7 +519,7 @@ int launch(int is_bf16, const void* q, const void* k, const void* v, void* out, 
 
 // q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d), all contiguous, of
 // float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); d in {16, 32, 64, 80,
-// 128}; sq, sk >= 1; bh <= 65535.  Returns cudaGetLastError() (or
+// 96, 128, 256}; sq, sk >= 1; bh <= 65535.  Returns cudaGetLastError() (or
 // cudaErrorInvalidValue for another d).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int bh, int sq, int sk, int d, int causal, float scale,
@@ -485,7 +530,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 32: return launch<32>(is_bf16, q, k, v, out, bh, sq, sk, causal, scale, st);
     case 64: return launch<64>(is_bf16, q, k, v, out, bh, sq, sk, causal, scale, st);
     case 80: return launch<80>(is_bf16, q, k, v, out, bh, sq, sk, causal, scale, st);
+    case 96: return launch<96>(is_bf16, q, k, v, out, bh, sq, sk, causal, scale, st);
     case 128: return launch<128>(is_bf16, q, k, v, out, bh, sq, sk, causal, scale, st);
+    case 256: return launch<256>(is_bf16, q, k, v, out, bh, sq, sk, causal, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

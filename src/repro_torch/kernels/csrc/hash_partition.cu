@@ -83,6 +83,8 @@ constexpr int kPackThreads = 256;
 constexpr int kPackWarps = kPackThreads / 32;
 constexpr int kRowsPerThread = kTile / kPackThreads;
 constexpr unsigned kPrefix = 0x80000000u;     // status flag: inclusive prefix
+constexpr size_t kDefaultSmem = 48 * 1024;    // dynamic shared memory without the opt-in
+constexpr size_t kPackSmemMax = 232448;       // a block's most after the opt-in (227 KB)
 
 __device__ __forceinline__ unsigned load_status(const unsigned* p) {
   unsigned v;
@@ -186,6 +188,117 @@ hp_pack(const int* __restrict__ keys, const int* __restrict__ counts, int n_segs
   }
 }
 
+// hash_partition_pack for any P (the wide path).  Per-warp bins of P + 1
+// counters stop fitting a block's 227 KB of shared memory at P = 2421, so
+// above that the per-tile histograms live in global memory:
+//   1. hp_wide_rank, one block per (segment, tile): each row's partition id
+//      (stored), then a bitonic sort of the tile's 1024 (part, row) pairs in
+//      shared memory; a row's rank in its tile is its sorted position less
+//      the start of its part's run (a binary search of the sorted pairs),
+//      stored in slot; the last row of each run writes the run's length to
+//      the tile's histogram entry of that part;
+//   2. hp_wide_scan, one thread per (segment, part), turns the tile counts
+//      into exclusive bases over the segment's tiles in place and writes
+//      the send counts;
+//   3. hp_wide_slot adds each row's tile base to its rank.
+// Rows are sorted with their index, so the rank is stable and the slots are
+// the single-block path's (and the reference's).  Bound: memory, as the
+// single-block path, plus the (S, tiles, P + 1) histogram read and written
+// twice.
+constexpr int kWideThreads = 256;
+constexpr int kWideRows = kTile / kWideThreads;
+
+__global__ void __launch_bounds__(kWideThreads)
+hp_wide_rank(const int* __restrict__ keys, const int* __restrict__ counts, int n_segs, int n,
+             int n_parts, int n_tiles, int* __restrict__ tile_hist, int* __restrict__ part_out,
+             int* __restrict__ slot_out) {
+  __shared__ unsigned long long pairs[kTile];   // part << 32 | row in the tile
+  const int tid = threadIdx.x;
+  const int seg = static_cast<int>(blockIdx.x % n_segs);
+  const int tile = static_cast<int>(blockIdx.x / n_segs);
+  const int count = counts[seg];
+  const int64_t base = static_cast<int64_t>(seg) * n;
+  const int64_t row0 = static_cast<int64_t>(tile) * kTile;
+  const unsigned long long past_end = static_cast<unsigned long long>(n_parts) + 1;
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    const int loc = tid + r * kWideThreads;
+    const int64_t row = row0 + loc;
+    unsigned long long p = past_end;     // rows past the array end sort last, write nothing
+    if (row < n) {
+      p = row >= count ? static_cast<unsigned long long>(n_parts)
+                       : mix_u32(static_cast<uint32_t>(keys[base + row])) %
+                             static_cast<uint32_t>(n_parts);
+      part_out[base + row] = static_cast<int>(p);
+    }
+    pairs[loc] = p << 32 | static_cast<unsigned>(loc);
+  }
+  __syncthreads();
+  for (int k = 2; k <= kTile; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int r = 0; r < kWideRows; ++r) {
+        const int i = tid + r * kWideThreads, ixj = i ^ j;
+        if (ixj > i) {
+          const unsigned long long a = pairs[i], b = pairs[ixj];
+          if ((a > b) == ((i & k) == 0)) {
+            pairs[i] = b;
+            pairs[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  int* hist = tile_hist + (static_cast<int64_t>(seg) * n_tiles + tile) * (n_parts + 1LL);
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    const int i = tid + r * kWideThreads;
+    const unsigned long long pr = pairs[i];
+    const unsigned long long p = pr >> 32;
+    if (p == past_end) continue;
+    int lo = 0, hi = i;                  // first sorted position of part p
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((pairs[mid] >> 32) < p) lo = mid + 1; else hi = mid;
+    }
+    const int loc = static_cast<int>(pr & 0xffffffffu);
+    slot_out[base + row0 + loc] = i - lo;
+    if (i == kTile - 1 || (pairs[i + 1] >> 32) != p) hist[p] = i - lo + 1;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+hp_wide_scan(int n_segs, int n_parts, int n_tiles, int* __restrict__ tile_hist,
+             int* __restrict__ send_counts) {
+  const int64_t nb = static_cast<int64_t>(n_parts) + 1;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kWideThreads + threadIdx.x;
+  if (i >= n_segs * nb) return;
+  const int64_t seg = i / nb, b = i % nb;
+  int* h = tile_hist + seg * n_tiles * nb + b;
+  int run = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c = h[t * nb];
+    h[t * nb] = run;
+    run += c;
+  }
+  if (b < n_parts) send_counts[seg * n_parts + b] = run;
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+hp_wide_slot(int n_segs, int n, int n_parts, int n_tiles, const int* __restrict__ tile_hist,
+             const int* __restrict__ part_out, int* __restrict__ slot_out) {
+  const int seg = static_cast<int>(blockIdx.x % n_segs);
+  const int tile = static_cast<int>(blockIdx.x / n_segs);
+  const int64_t base = static_cast<int64_t>(seg) * n;
+  const int* bases = tile_hist + (static_cast<int64_t>(seg) * n_tiles + tile) * (n_parts + 1LL);
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    const int64_t row = static_cast<int64_t>(tile) * kTile + threadIdx.x + r * kWideThreads;
+    if (row < n) slot_out[base + row] += bases[part_out[base + row]];
+  }
+}
+
 constexpr int kHistThreads = 256;
 constexpr int kHistWarps = kHistThreads / 32;
 constexpr int kHistBlocksPerSm = 2048 / kHistThreads;
@@ -272,8 +385,9 @@ extern "C" int hash_partition_launch(const int* keys, int n, int n_parts, int* p
 // keys (n_segs, n) int32; counts (n_segs,) int32; outputs part, slot
 // (n_segs, n) and send_counts (n_segs, n_parts) int32; scratch
 // n_segs · max(1, ceil(n / 1024)) · (n_parts + 1) int32 status words, zeroed
-// here.  N = 0 still launches, one empty tile per segment, which writes zero
-// send counts.  Returns cudaGetLastError().
+// here; 96 · (n_parts + 1) bytes of shared memory a block, at most
+// kPackSmemMax (n_parts <= 2420).  N = 0 still launches, one empty tile per
+// segment, which writes zero send counts.  Returns cudaGetLastError().
 extern "C" int hash_partition_pack_launch(const int* keys, const int* counts,
                                           int n_segs, int n, int n_parts,
                                           int* part, int* slot, int* send_counts,
@@ -283,12 +397,50 @@ extern "C" int hash_partition_pack_launch(const int* keys, const int* counts,
   const int nb = n_parts + 1;
   const int64_t blocks = static_cast<int64_t>(n_segs) * n_tiles;
   if (blocks > 0) {
+    const size_t smem = sizeof(int) * 3 * kPackWarps * nb;
+    if (smem > kPackSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > kDefaultSmem) {
+      cudaError_t err = cudaFuncSetAttribute(hp_pack, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+      if (err != cudaSuccess) {
+        cudaGetLastError();   // clear it, so that the next launch reports its own
+        return static_cast<int>(err);
+      }
+    }
     cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * blocks * nb, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t smem = sizeof(int) * 3 * kPackWarps * nb;
     hp_pack<<<static_cast<unsigned>(blocks), kPackThreads, smem, st>>>(
         keys, counts, n_segs, n, n_parts, n_tiles, reinterpret_cast<unsigned*>(scratch), part,
         slot, send_counts);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract as hash_partition_pack_launch, for any n_parts >= 1:
+// the scratch holds the (n_segs, n_tiles, n_parts + 1) tile histograms.
+// Three launches after one memset (hp_wide_rank, hp_wide_scan,
+// hp_wide_slot).  Returns cudaGetLastError().
+extern "C" int hash_partition_pack_wide_launch(const int* keys, const int* counts,
+                                               int n_segs, int n, int n_parts,
+                                               int* part, int* slot, int* send_counts,
+                                               int* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = std::max(1, (n + kTile - 1) / kTile);
+  const int64_t nb = static_cast<int64_t>(n_parts) + 1;
+  const int64_t blocks = static_cast<int64_t>(n_segs) * n_tiles;
+  if (blocks > 0) {
+    cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * blocks * nb, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hp_wide_rank<<<static_cast<unsigned>(blocks), kWideThreads, 0, st>>>(
+        keys, counts, n_segs, n, n_parts, n_tiles, scratch, part, slot);
+    const int64_t scan_blocks = (static_cast<int64_t>(n_segs) * nb + kWideThreads - 1) /
+                                kWideThreads;
+    hp_wide_scan<<<static_cast<unsigned>(scan_blocks), kWideThreads, 0, st>>>(
+        n_segs, n_parts, n_tiles, scratch, send_counts);
+    if (n > 0) {
+      hp_wide_slot<<<static_cast<unsigned>(blocks), kWideThreads, 0, st>>>(
+          n_segs, n, n_parts, n_tiles, scratch, part, slot);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,7 @@ import torch
 from . import _build
 
 #: head dims the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_BH = 65535                  # the grid's y extent
 

@@ -5,6 +5,11 @@ They replace the TPU kernels ``hash_partition_pack_pallas`` (hash +
 partition id + stable in-partition slot + send counts for every segment of a
 batch in one call) and ``hash_partition_pallas`` (partition id per key and
 the global partition histogram) of src/repro/kernels/hash_partition.py.
+
+``hash_partition_pack`` has two kernels, picked by P alone: up to
+``MAX_SMEM_PARTS`` partitions one block ranks a tile in per-warp shared
+bins (``hp_pack``); above, the tile histograms live in global memory
+(``hp_wide_*``).  Both give the plain version's part, slot and send counts.
 """
 
 from __future__ import annotations
@@ -14,8 +19,11 @@ import torch
 from . import _build
 
 TILE = 1024
-MAX_PARTS = 383                 # hash_partition_pack's accepted range of P
 SMEM_LIMIT = 48 * 1024          # default dynamic shared memory per block
+PACK_SMEM_MAX = 232448          # a block's shared memory after the opt-in (227 KB)
+#: the largest P of hash_partition_pack's single-block kernel: 3 · 8 warps ·
+#: (P + 1) int32 bins of shared memory
+MAX_SMEM_PARTS = PACK_SMEM_MAX // (4 * 3 * 8) - 1
 
 
 def _require(cond: bool, msg: str, name: str = "hash_partition_pack") -> None:
@@ -30,8 +38,7 @@ def hash_partition_pack_cuda(keys: torch.Tensor, counts: torch.Tensor, n_parts: 
     _require(keys.dtype == torch.int32 and counts.dtype == torch.int32, "tensors must be int32")
     _require(keys.dim() == 2 and counts.shape == (keys.shape[0],), "want keys (S, N), counts (S,)")
     _require(keys.is_contiguous() and counts.is_contiguous(), "tensors must be contiguous")
-    _require(n_parts >= 1, "n_parts must be >= 1")
-    _require(n_parts <= MAX_PARTS, f"n_parts must be <= {MAX_PARTS}")
+    _require(1 <= n_parts < 2**31 - 1, "n_parts must be in [1, 2^31 - 1)")
     s, n = keys.shape
     _require(s * n < 2**31, "batch too large for int32 indexing")
     # part and slot share one allocation
@@ -41,7 +48,9 @@ def hash_partition_pack_cuda(keys: torch.Tensor, counts: torch.Tensor, n_parts: 
         return part, slot, send
     n_tiles = max(1, -(-n // TILE))     # N = 0: one empty tile per segment
     status = torch.empty((s * n_tiles * (n_parts + 1),), dtype=torch.int32, device=keys.device)
-    fn = _build.launcher("hash_partition_pack_launch")
+    wide = n_parts > MAX_SMEM_PARTS
+    fn = _build.launcher("hash_partition_pack_wide_launch" if wide
+                         else "hash_partition_pack_launch")
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     rc = fn(keys.data_ptr(), counts.data_ptr(), s, n, n_parts, part.data_ptr(),
             slot.data_ptr(), send.data_ptr(), status.data_ptr(), stream)

@@ -1,11 +1,19 @@
 """The MPC join on the torch data plane: the round-program IR (``program``),
-the dataplane executor (``executors``) and the join service (``service``),
-with the grid geometry (``cartesian``, ``hypercube``) and typed errors
+the dataplane executor (``executors``) and the join service (``service``:
+synchronous, coalesced and asynchronous submission), with the grid geometry
+(``cartesian``, ``hypercube``) and the typed errors and fault injection
 (``faults``) they share."""
 
 from .executors import BatchRunStats, DataplaneExecutor, DataplaneJoinResult, DataplaneUnsupported
 from .faults import (
     DeadlineExceededError,
+    DegradedSessionError,
+    FaultPlan,
+    FaultRule,
+    InjectedCompileError,
+    InjectedDispatchError,
+    InjectedDrainerError,
+    InjectedFault,
     JoinServiceError,
     QueryFailedError,
     RetryExhaustedError,
@@ -26,5 +34,6 @@ from .program import (
     fuse_semijoin_pass,
     histogram_signature,
     plan_cache_key,
+    programs_coalescible,
 )
-from .service import JoinSession, ServiceStats, SessionResult
+from .service import AdmissionError, JoinSession, ServiceStats, SessionResult

@@ -245,7 +245,10 @@ class DataplaneExecutor:
     — capacity-doubling attempts before giving up; ``batch_stages`` —
     stage-batched vs per-stage scheduling; ``exact_caps`` — size GridRoute /
     LocalJoin buffers with an exchange-free counting pass (count-then-emit)
-    instead of estimates + overflow retry."""
+    instead of estimates + overflow retry; ``fault_plan`` — a
+    :class:`~repro_torch.mpc.faults.FaultPlan` consulted at the dispatch,
+    first-build and overflow-readback sites (None = no injection; a per-run
+    ``RunConfig.fault_plan`` overrides it)."""
 
     _LOWERING = {
         Scatter: "_lower_scatter",
@@ -268,6 +271,7 @@ class DataplaneExecutor:
         max_retries: int = 6,
         batch_stages: bool = True,
         exact_caps: bool = True,
+        fault_plan=None,
     ):
         if p < 1:
             raise ValueError("p must be >= 1")
@@ -290,7 +294,13 @@ class DataplaneExecutor:
         #: lifetime count of learned-caps entries dropped after failed runs
         self.caps_quarantined = 0
         self.exact_caps = exact_caps
+        self.fault_plan = fault_plan
+        #: (round, static key, caps) of every bucket built so far, LRU-bounded:
+        #: the first build of one is where ``FaultPlan.at_compile`` fires
+        self._built: "OrderedDict[Tuple, None]" = OrderedDict()
         self._deadline: Optional[float] = None
+        self._fault_plan_run = None           # plan resolved for the active run
+        self._tainted_caps: Optional[set] = None   # keys that saw injected overflow
         self._touched_caps: Optional[set] = None
         self._run_fps: Tuple[str, ...] = ()
         self._phase_us: Dict[str, float] = {}
@@ -332,8 +342,9 @@ class DataplaneExecutor:
         serial :meth:`run` of its program.  Returns ``(results, batch)``.
 
         ``config`` adds a monotonic-clock ``deadline`` checked between
-        dispatches.  On any failure the run's touched learned-caps entries
-        are dropped before the exception propagates."""
+        dispatches and a per-run ``fault_plan`` override.  On any failure the
+        run's touched learned-caps entries are dropped before the exception
+        propagates."""
         if config is not None:
             materialize = config.materialize
         if not programs:
@@ -360,7 +371,12 @@ class DataplaneExecutor:
         self._phase_us = {"host_prep": 0.0, "compile": 0.0, "launch": 0.0, "sync": 0.0}
         self._round_us = {}
         self._deadline = config.deadline if config is not None else None
+        self._fault_plan_run = (
+            config.fault_plan if config is not None and config.fault_plan is not None
+            else self.fault_plan
+        )
         self._touched_caps = set()
+        self._tainted_caps = set()
         self._run_fps = tuple(self._program_fingerprint(p) for p in programs)
         states = [
             _StageState(stage=st, skey=(st.hkey, st.ekey), program=prog, qi=qi)
@@ -384,7 +400,9 @@ class DataplaneExecutor:
             raise
         finally:
             self._deadline = None
+            self._fault_plan_run = None
             self._touched_caps = None
+            self._tainted_caps = None
             self._run_fps = ()
 
         batch = BatchRunStats(
@@ -538,6 +556,7 @@ class DataplaneExecutor:
         if not items:
             return items
         self._check_deadline(round_name)
+        fp = self._fault_plan_run
         t_round = time.perf_counter()
         phase = self._phase_us
 
@@ -583,6 +602,19 @@ class DataplaneExecutor:
             t0 = time.perf_counter()
             prepared = []
             for bucket in buckets.values():
+                # nothing is compiled ahead of a dispatch here, so the first
+                # build of a (round, key, caps) bucket stands where the
+                # reference's executable-cache miss compiles: the compile
+                # fault site fires there
+                sig = (round_name, bucket[0].key, tuple(sorted(bucket[0].caps.items())))
+                if sig in self._built:
+                    self._built.move_to_end(sig)
+                else:
+                    if fp is not None:
+                        fp.at_compile(round_name)
+                    self._built[sig] = None
+                    while len(self._built) > self._LEARNED_CAPS_CAPACITY:
+                        self._built.popitem(last=False)
                 prepared.append((bucket, *dispatch(bucket)))
                 self._dispatches += 1
                 self._bucket_log.setdefault(round_name, []).append(len(bucket))
@@ -592,6 +624,8 @@ class DataplaneExecutor:
             launched = []
             for bucket, fn, args, post in prepared:
                 self._check_deadline(round_name)
+                if fp is not None:
+                    fp.at_dispatch(round_name)
                 launched.append((bucket, *post(fn(*args))))
             phase["launch"] = phase.get("launch", 0.0) + (time.perf_counter() - t0) * 1e6
 
@@ -609,6 +643,16 @@ class DataplaneExecutor:
                         kinds.add("slot")
                     if int(tot[1]):
                         kinds.add("out")
+                    if fp is not None:
+                        # injected overflow: forced channels read exactly like
+                        # real trips (doubling, re-salting, retry accounting),
+                        # but the item's learned-caps slot is tainted so the
+                        # inflated caps are never written back
+                        forced = {ch for ch in fp.overflow(round_name) if ch in it.caps}
+                        if forced:
+                            kinds |= forced
+                            if self._tainted_caps is not None:
+                                self._tainted_caps.add(self._caps_key(round_name, it))
                     tripped[id(it)] = kinds
                     it.result = results[i]
             phase["sync"] = phase.get("sync", 0.0) + (time.perf_counter() - t0) * 1e6
@@ -655,10 +699,21 @@ class DataplaneExecutor:
                     )
                 retry.append(it)
             pending = retry
+        quarantined: set = set()
         for it in items:
             if not it.caps:        # count-only rounds carry no capacities
                 continue
             k = self._caps_key(round_name, it)
+            if self._tainted_caps is not None and k in self._tainted_caps:
+                # caps doubled by *injected* overflow: the data never needed
+                # them, so writing them back would pin the steady state at
+                # fault-inflated buffer sizes
+                if k not in quarantined:
+                    quarantined.add(k)
+                    self._learned_caps.pop(k, None)
+                    self._caps_quarantined += 1
+                    self.caps_quarantined += 1
+                continue
             self._learned_caps[k] = dict(it.caps)
             self._learned_caps.move_to_end(k)
         while len(self._learned_caps) > self._LEARNED_CAPS_CAPACITY:

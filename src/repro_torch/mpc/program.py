@@ -337,7 +337,7 @@ class RunConfig:
 
     Separates *what* runs (the :class:`RoundProgram`, cached and reused
     across queries) from *how this particular run* behaves — so deadlines
-    never leak into plan cache keys or coalesce signatures.
+    and fault plans never leak into plan cache keys or coalesce signatures.
 
     Attributes:
         materialize: gather output rows to host (False = sizes only).
@@ -345,10 +345,15 @@ class RunConfig:
             executor raises ``DeadlineExceededError``.  Checked *between*
             dispatches only, so overshoot is bounded by one bucket dispatch.
             None = no budget.
+        fault_plan: a ``repro_torch.mpc.faults.FaultPlan`` consulted at the
+            executor's injection sites for this run, overriding any plan the
+            executor itself was constructed with.  None = use the
+            executor's own (which defaults to no injection).
     """
 
     materialize: bool = True
     deadline: Optional[float] = None
+    fault_plan: Optional[object] = None
 
 
 # ---------------------------------------------------------------------------

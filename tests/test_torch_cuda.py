@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import merge_join as tmj
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
-from repro_torch.kernels.hash_partition import (MAX_PARTS, SMEM_LIMIT, hash_partition_cuda,
+from repro_torch.kernels.hash_partition import (MAX_SMEM_PARTS, SMEM_LIMIT, hash_partition_cuda,
                                                 hash_partition_pack_cuda)
 from repro_torch.kernels.ssd import ssd_chunk_cuda
 from repro_torch.kernels import ref as tref
@@ -172,8 +172,12 @@ def hash_partition_pack_edge_case(name):
         k, c, parts = keys(8, 4096), mixed(8, 4096), 64
     elif name == "p1":
         k, c, parts = keys(4, 3000), np.full(4, 3000, np.int32), 1
-    elif name == "p-largest":                # the largest P the wrapper takes
-        k, c, parts = keys(4, 9000), rng.integers(0, 9001, 4).astype(np.int32), MAX_PARTS
+    elif name == "p-largest":                # the largest P of the single-block kernel
+        k, c, parts = keys(4, 9000), rng.integers(0, 9001, 4).astype(np.int32), MAX_SMEM_PARTS
+    elif name == "p-past-single-block":      # the smallest P of the wide kernel
+        k, c, parts = keys(4, 9000), rng.integers(0, 9001, 4).astype(np.int32), MAX_SMEM_PARTS + 1
+    elif name in ("p384", "p1024", "p4096"):  # past the old limit of 383, on both kernels
+        k, c, parts = keys(8, 5000), rng.integers(0, 5001, 8).astype(np.int32), int(name[1:])
     else:                                    # "s4096-one-tile"
         k, c, parts = keys(4096, 1024), rng.integers(0, 1025, 4096).astype(np.int32), 64
     return torch.from_numpy(k), torch.from_numpy(c), parts
@@ -181,7 +185,8 @@ def hash_partition_pack_edge_case(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["n2e20-one-partition", "n2e20-64-partitions", "n-off-1024",
-                                  "n1", "counts-0-and-n", "p1", "p-largest", "s4096-one-tile"])
+                                  "n1", "counts-0-and-n", "p1", "p-largest", "s4096-one-tile",
+                                  "p-past-single-block", "p384", "p1024", "p4096"])
 def test_hash_partition_pack_kernel_edge_cases_on_card(cuda_device, name):
     keys, counts, parts = hash_partition_pack_edge_case(name)
     before = _build.launches["hash_partition_pack"]
@@ -362,3 +367,53 @@ def test_ssd_chunk_kernel_refuses_what_shared_memory_cannot_hold(cuda_device):
     torch.cuda.synchronize()
     assert _build.launches["ssd_chunk"] == before + 1
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+
+
+def zipf_triangle_query(seed, n_vertices, n_edges):
+    """A Zipf graph's degree-oriented triangle query (the port's generator)."""
+    from repro_torch.core.query import query_from_arrays
+    from repro_torch.graph import compile_pattern, triangle, zipf_graph
+
+    g = zipf_graph(np.random.default_rng(seed), n_vertices, n_edges, skew=0.9)
+    rels = compile_pattern(g, triangle()).query.relations
+    return query_from_arrays([(r.scheme, r.data, r.table) for r in rels])
+
+
+def same_result(a, b):
+    return (a.count == b.count and a.per_h_counts == b.per_h_counts
+            and a.rows.dtype == b.rows.dtype and a.rows.tobytes() == b.rows.tobytes())
+
+
+@pytest.mark.cuda
+def test_session_past_the_old_pack_limit_matches_the_cpu(cuda_device):
+    """JoinSession(p=512) on a skewed triangle whose heavy stages run
+    HashPartition and SemiJoin: every hash exchange partitions into
+    512 > 383 parts, on the single-block pack kernel; the card's rows equal
+    the CPU's plain path byte for byte."""
+    from repro_torch.core.query import random_query
+    from repro_torch.mpc import JoinSession
+
+    q = random_query(np.random.default_rng(2), "clique", 3, tuples_per_rel=2000, dom_size=300,
+                     skew=2.0)
+    _build.launches.clear()
+    got = JoinSession(p=512, device=cuda_device).submit(q, lam=16)
+    assert {"step2-unary", "step2-bx"} <= set(got.result.round_us)
+    assert _build.launches["hash_partition_pack"] > 0
+    assert same_result(got, JoinSession(p=512, device="cpu").submit(q, lam=16))
+
+
+@pytest.mark.cuda
+def test_coalesced_batch_on_card_equals_serial(cuda_device):
+    """One coalesced scheduler pass on the card (distinct data behind one
+    plan, a repeat that deduplicates, another shape) ≡ serial submits."""
+    from repro_torch.mpc import JoinSession
+
+    queries = [zipf_triangle_query(s, 800, 4000) for s in (5, 6, 7)]
+    batch = queries + [queries[0]]
+    serial = JoinSession(p=64, device=cuda_device)
+    want = [serial.submit(q) for q in batch]
+    session = JoinSession(p=64, device=cuda_device)
+    got = session.submit_coalesced(batch)
+    assert session.stats.deduped == 1
+    for g, w in zip(got, want):
+        assert same_result(g, w)
