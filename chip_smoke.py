@@ -69,8 +69,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      p50/p99 logged), and one coalesced group under a FaultPlan that fails
      one member's dispatch: that member alone fails, typed; kernel launches
      counted;
+  verify: the static verifier in front of the card: a
+     ``JoinSession(p=64, verify=True)`` over bench_subgraph.py's four cases
+     and phase 4's heavy query, every cold submit fully verified and every
+     warm one re-checking its bindings (``verify_us`` logged cold and warm),
+     rows byte-identical to the unverified session of phases 3-5, its
+     learned capacities on the cap grid, ``RunConfig(verify=True)`` of the
+     heavy program passing, and that program with its RouteResidual dropped
+     raising ``ProgramVerificationError`` before any kernel launch;
+  simulator: the metered MPC simulator on the host, held against the card:
+     the four bench_subgraph.py cases through
+     ``enumerate_subgraphs(backend="simulator", p=64)`` at the canonical
+     lambda, byte-equal to the card's occurrences, with ``check_load``
+     passing and load, bound and load_ratio logged; bench_load_vs_p.py's
+     Theorem 6.2 exponent sweep
+     (triangle, cycle4, star3 x uniform, zipf1.5 x p in 8..256: each uniform
+     slope within 0.25 of -1/rho, ``check_load`` passing in all 36 runs);
+     and ``all_icp_checks`` on bench_isolated_cp.py's hub star (lambda 4, 8,
+     16) within Theorem 5.4's and Lemma 5.5's bounds;
   then the ``kernels`` JSON line (six rows).  Phases 3-5 give its launch
-  counts; patterns and service run after them (phase 6 and 7 follow).
+  counts, on a session that does not verify (the service's default);
+  patterns, service, verify and simulator run after them (phase 6 and 7
+  follow).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 
@@ -1608,6 +1628,248 @@ def phase_service(torch, device="cuda", clients: int = 8, per_client: int = 32,
     return {"p50_ms": p50, "p99_ms": p99, "async_wall_s": wall, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# The static verifier on the card and the metered simulator on the host
+# ---------------------------------------------------------------------------
+
+#: benchmarks/bench_load_vs_p.py's Theorem 6.2 exponent sweep: one query per
+#: (family, distribution), fixed across p (its gate: uniform slopes within
+#: ``SLOPE_TOL`` of -1/rho)
+SWEEP_P = (8, 16, 32, 64, 128, 256)
+SWEEP_FAMILIES = (("triangle", "clique", 3), ("cycle4", "cycle", 4), ("star3", "star", 3))
+SWEEP_DISTS = (("uniform", 0.0), ("zipf1.5", 1.5))
+SWEEP_TUPLES = 2000
+SLOPE_TOL = 0.25
+
+
+def submit_timed(torch, session, query, lam):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = session.submit(query, lam=lam)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_verify(torch, plain_session, heavy, device="cuda") -> dict:
+    """The static verifier in front of the card's dataplane: a
+    ``JoinSession(p=64, verify=True)`` over bench_subgraph.py's four cases
+    and phase 4's heavy query, cold and warm.  Every cold submit runs the
+    full verifier (``verified``, ``verify_us`` > 0, with the executor's
+    learned capacities), every warm one only the bindings re-check (less
+    time); rows byte-identical to the unverified ``plain_session``; the
+    learned capacities on the cap grid; ``RunConfig(verify=True)`` of the
+    heavy program passes, and the same program with its RouteResidual
+    dropped raises ``ProgramVerificationError`` ("collective-stream",
+    "step1") with no kernel launched.  → the occurrences per case."""
+    from dataclasses import replace
+
+    from repro_torch.core.taxonomy import compute_stats
+    from repro_torch.graph import compile_pattern, postprocess_rows
+    from repro_torch.mpc import (JoinSession, ProgramVerificationError, RouteResidual,
+                                 RunConfig, compile_plan)
+    from repro_torch.mpc.verify import verify_caps
+
+    t_phase = time.perf_counter()
+    jobs = [(name, compile_pattern(g, pat), lam) for name, g, pat, lam in subgraph_cases()]
+    jobs.append(("heavy", None, 24))
+    # the unverified session's rows first, so that the launch counts read
+    # below are the verified session's own
+    plains = {}
+    for name, compiled, lam in jobs:
+        q = heavy["query"] if compiled is None else compiled.query
+        plains[name] = plain_session.submit(q, lam=lam)
+        if plain_session.verify or plains[name].verified:
+            raise AssertionError("verify: the comparison session verified")
+    torch.cuda.synchronize()
+
+    reset_counts()
+    session = JoinSession(p=64, device=device, verify=True)
+    if session.executor.device.type != torch.device(device).type:
+        raise AssertionError(f"verify: the session runs on {session.executor.device}")
+    out = {}
+    for name, compiled, lam in jobs:
+        q = heavy["query"] if compiled is None else compiled.query
+        cold, cold_s = submit_timed(torch, session, q, lam)
+        warm, warm_s = submit_timed(torch, session, q, lam)
+        plain = plains[name]
+        if not (cold.verified and cold.verify_us > 0 and not cold.plan_cache_hit):
+            raise AssertionError(f"verify {name}: the cold submit was not verified: "
+                                 f"verified={cold.verified} verify_us={cold.verify_us}")
+        if not (warm.plan_cache_hit and not warm.verified and warm.verify_us < cold.verify_us):
+            raise AssertionError(f"verify {name}: warm verify_us {warm.verify_us} is not a "
+                                 f"bindings re-check below the cold {cold.verify_us}")
+        for label, other in (("the unverified session", plain), ("the warm submit", warm)):
+            if not same_rows(cold, other):
+                raise AssertionError(f"verify {name}: rows differ from {label}")
+        log(f"[verify] {name} (lambda={lam}): {cold.count} rows byte-identical to the "
+            f"unverified session; verify_us cold {cold.verify_us:.1f} (full pass, "
+            f"{cold.total_us / 1e3:.1f} ms total), warm {warm.verify_us:.1f} (bindings, "
+            f"{warm.total_us / 1e3:.1f} ms total); wall cold {cold_s:.3f} s, warm {warm_s:.3f} s")
+        out[name] = {"verify_us_cold": cold.verify_us, "verify_us_warm": warm.verify_us,
+                     "occurrences": (None if compiled is None
+                                     else postprocess_rows(compiled, cold.rows))}
+    if session.stats.verified != len(jobs):
+        raise AssertionError(f"verify: {session.stats.verified} full passes for {len(jobs)} "
+                             "cold submits")
+    n_caps = verify_caps(session.executor._learned_caps)
+    log(f"[verify] {n_caps} learned capacities of the card's executor on the cap grid")
+
+    q = heavy["query"]
+    prog = compile_plan(q, compute_stats(q, 24), 64, verify=False)
+    res = session.executor.run(prog, config=RunConfig(verify=True))
+    if res.rows.tobytes() != heavy["cold"]["res"].rows.tobytes():
+        raise AssertionError("verify: RunConfig(verify=True) rows differ from phase 4's")
+    broken = replace(prog, ops=tuple(op for op in prog.ops if not isinstance(op, RouteResidual)))
+    torch.cuda.synchronize()
+    before = launch_counts(JOIN_KERNELS)
+    try:
+        session.executor.run(broken, config=RunConfig(verify=True))
+    except ProgramVerificationError as e:
+        if (e.rule, e.op_round) != ("collective-stream", "step1"):
+            raise AssertionError(f"verify: broken program failed {e.rule}/{e.op_round}") from e
+        log(f"[verify] program with RouteResidual dropped: ProgramVerificationError "
+            f"({e.rule}, {e.op_round}) before any kernel")
+    else:
+        raise AssertionError("verify: the program with RouteResidual dropped ran")
+    torch.cuda.synchronize()
+    if launch_counts(JOIN_KERNELS) != before:
+        raise AssertionError("verify: kernels launched for the rejected program")
+    out["launches"] = check_path_launches("verify")
+    del session
+    torch.cuda.empty_cache()
+    log(f"[verify] ok in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def recorded_slopes() -> dict:
+    """The slopes of BENCH_load_vs_p.json's newest snapshot (for the log)."""
+    path = ROOT / "BENCH_load_vs_p.json"
+    if not path.exists():
+        return {}
+    snaps = json.loads(path.read_text())
+    snap = snaps[-1] if isinstance(snaps, list) else snaps
+    return {k: v["slope"] for k, v in snap.get("slopes", {}).items()}
+
+
+def hub_query(kind: str, n_attrs: int, n: int, rng):
+    """benchmarks/bench_load_vs_p.py's adversarial hub: one super-heavy value
+    on the first attribute."""
+    from repro_torch.core.query import JoinQuery, Relation, pattern_edges
+
+    rels = []
+    for e in pattern_edges(kind, n_attrs):
+        if e[0] == "X0":
+            data = np.stack([np.zeros(n, np.int64), np.arange(n)], axis=1)
+        elif e[1] == "X0":
+            data = np.stack([np.arange(n), np.zeros(n, np.int64)], axis=1)
+        else:
+            data = rng.integers(0, n, size=(n, 2))
+        rels.append(Relation.make(e, data))
+    return JoinQuery.make(rels)
+
+
+def phase_simulator(verified) -> dict:
+    """The metered MPC simulator on the host, held against the card:
+    (a) bench_subgraph.py's four cases through
+    ``enumerate_subgraphs(backend="simulator", p=64)`` at the canonical
+    λ = ``heavy_parameter(64, rho)`` (the load model's premise),
+    occurrences byte-equal to the card's in phase verify and ``check_load``
+    passing on each;
+    (b) bench_load_vs_p.py's Theorem 6.2 exponent sweep (3 families ×
+    uniform/zipf1.5 × p in 8..256, ``SimulatorExecutor(p).run``), the max
+    data-round load fitted on a log-log line: ``check_load`` passes in all
+    36 runs and each uniform slope is within ``SLOPE_TOL`` of -1/rho;
+    (c) ``all_icp_checks`` on bench_isolated_cp.py's hub star (λ = 4, 8,
+    16): every left-hand side within Theorem 5.4's and Lemma 5.5's bounds."""
+    import math
+
+    from repro_torch.analysis import DATA_ROUNDS
+    from repro_torch.core.hypergraph import rho
+    from repro_torch.core.icp import all_icp_checks
+    from repro_torch.core.planner import heavy_parameter
+    from repro_torch.core.query import random_query
+    from repro_torch.core.taxonomy import compute_stats
+    from repro_torch.graph import compile_pattern, enumerate_subgraphs
+    from repro_torch.mpc import SimulatorExecutor, compile_plan
+    from repro_torch.mpc.verify import check_load
+
+    t_phase = time.perf_counter()
+    out = {"subgraph": {}, "slopes": {}, "icp": {}}
+    for name, g, pat, _ in subgraph_cases():
+        q = compile_pattern(g, pat).query
+        card = verified[name]["occurrences"]
+        # the load model bounds programs planned at the canonical lambda; the
+        # occurrences do not depend on lambda, so the card's (at the bench's
+        # own lambda) must equal these byte for byte
+        lam = heavy_parameter(64, float(rho(q)))
+        t0 = time.perf_counter()
+        res = enumerate_subgraphs(g, pat, p=64, backend="simulator", lam=lam)
+        host_s = time.perf_counter() - t0
+        if (res.occurrences.shape != card.shape
+                or res.occurrences.tobytes() != card.tobytes()):
+            raise AssertionError(f"simulator {name} lambda={lam}: occurrences differ "
+                                 "from the card's")
+        prog = compile_plan(q, compute_stats(q, lam), 64, verify=False)
+        fractions = check_load(prog, res.engine)
+        run = res.engine
+        log(f"[simulator] {name} (p=64, canonical lambda={lam}): {res.count} occurrences "
+            f"byte-equal to the card's; load {run.load} words, bound {run.bound:.1f}, "
+            f"load_ratio {run.load_ratio:.3f}; check_load passes (largest round share "
+            f"{max(fractions.values()):.3f}); {host_s:.2f} s on the host")
+        out["subgraph"][name] = {"load": run.load, "bound": run.bound,
+                                 "load_ratio": run.load_ratio}
+
+    recorded = recorded_slopes()
+    runs = 0
+    for family, kind, k in SWEEP_FAMILIES:
+        for dist, skew in SWEEP_DISTS:
+            q = random_query(np.random.default_rng(11), kind, k, tuples_per_rel=SWEEP_TUPLES,
+                             dom_size=SWEEP_TUPLES, skew=skew)
+            rho_val = float(rho(q))
+            xs, ys, worst = [], [], 0.0
+            for p in SWEEP_P:
+                lam = heavy_parameter(p, rho_val)
+                prog = compile_plan(q, compute_stats(q, lam), p, verify=False)
+                res = SimulatorExecutor(p=p).run(prog, materialize=False)
+                worst = max(worst, max(check_load(prog, res).values()))
+                loads = res.sim.merged_round_loads()
+                max_data = max((v for r, v in loads.items() if r in DATA_ROUNDS), default=0)
+                xs.append(math.log(p))
+                ys.append(math.log(max(1, max_data)))
+                runs += 1
+            slope = float(np.polyfit(xs, ys, 1)[0])
+            drift = abs(slope + 1.0 / rho_val)
+            key = f"{family}/{dist}"
+            gated = dist == "uniform"
+            log(f"[simulator] load vs p {key} (m={q.m}, rho={rho_val:g}): slope {slope:.4f}, "
+                f"expected {-1.0 / rho_val:.4f}, drift {drift:.4f} "
+                f"({'gated' if gated else 'not gated'}); BENCH_load_vs_p.json "
+                f"{recorded.get(key, 'n/a')}; check_load passes at every p (largest round "
+                f"share {worst:.3f})")
+            if gated and drift > SLOPE_TOL:
+                raise AssertionError(f"simulator: {key} slope {slope:.4f} drifts {drift:.4f} "
+                                     f"> {SLOPE_TOL} from -1/rho")
+            out["slopes"][key] = slope
+    if runs != len(SWEEP_FAMILIES) * len(SWEEP_DISTS) * len(SWEEP_P):
+        raise AssertionError(f"simulator: {runs} sweep runs")
+
+    q = hub_query("star", 4, 1500, np.random.default_rng(2))
+    for lam in (4, 8, 16):
+        checks = all_icp_checks(q, compute_stats(q, lam))
+        w54 = max((c.lhs / max(c.rhs_thm54, 1e-9) for c in checks), default=0.0)
+        w55 = max((c.lhs / max(c.rhs_lem55, 1e-9) for c in checks), default=0.0)
+        bad = [c for c in checks
+               if c.lhs > c.rhs_thm54 + 1e-9 or c.lhs > c.rhs_lem55 + 1e-9]
+        if bad or not checks:
+            raise AssertionError(f"simulator: ICP bound broken at lambda={lam}: {bad[:3]}")
+        log(f"[simulator] ICP hub star (1500 tuples, lambda={lam}): {len(checks)} (H, J) "
+            f"pairs, {sum(c.lhs > 0 for c in checks)} nonzero; worst lhs/thm5.4 {w54:.4f}, "
+            f"worst lhs/lem5.5 {w55:.4f}")
+        out["icp"][lam] = (w54, w55)
+    log(f"[simulator] ok in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1648,7 +1910,7 @@ def main(argv=None) -> int:
     capture = InputCapture()
     capture.install()
     reset_counts()
-    session = JoinSession(p=64)
+    session = JoinSession(p=64, verify=False)
     main3 = timed("phase 3", phase_triangle, torch, session, 500_000, 2_000_000, 0.9, 0, None,
                   "triangle-2M")
     heavy = timed("phase 4", phase_triangle, torch, session, 100_000, 300_000, 1.5, 1, 24,
@@ -1668,8 +1930,10 @@ def main(argv=None) -> int:
         phase_profile(torch, session, main3["query"], None)
     timed("phase patterns", phase_patterns, torch, session, main3)
     timed("phase service", phase_service, torch)
+    verified = timed("phase verify", phase_verify, torch, session, heavy)
+    timed("phase simulator", phase_simulator, verified)
 
-    del session, main3, heavy
+    del session, main3, heavy, verified
     torch.cuda.empty_cache()
     rows = timed("phase 6", phase_timing, torch, capture, launches)
     rows += timed("phase 7", phase_library, torch, dev)

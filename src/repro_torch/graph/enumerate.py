@@ -11,8 +11,11 @@ Backends:
     batched by default; pass ``executor=DataplaneExecutor(p,
     batch_stages=False)`` for the per-stage schedule), on ``device`` (the
     card unless the caller names another);
-  * ``"simulator"`` — the metered MPC simulator, which this package does not
-    have yet: it raises :class:`NotImplementedError`.
+  * ``"simulator"`` — :func:`repro_torch.mpc.engine.mpc_join` on the host:
+    shared-input Scatter, the 3-round distributed histogram, exact load
+    metering.  The reference package defaults to this backend; this package
+    defaults to ``"dataplane"``, so the entry point runs on the card unless
+    the caller asks otherwise.
 
 Passing ``session=`` (a :class:`repro_torch.mpc.service.JoinSession`) routes
 the join through the persistent service instead: repeated patterns over the
@@ -86,6 +89,7 @@ def enumerate_subgraphs(
     fuse_semijoin: bool = False,
     session=None,
     device=None,
+    seed: int = 0,
 ) -> EnumerationResult:
     """Enumerate every occurrence of ``pattern`` in ``graph`` via the join.
 
@@ -93,8 +97,10 @@ def enumerate_subgraphs(
         graph: the data graph (its edge set becomes the shared physical table).
         pattern: the pattern to enumerate (≤ 8 vertices).
         p: the plan's machine count (the executor's leading tensor axis).
-        backend: ``"dataplane"``; ``"simulator"`` raises (ignored when
-            ``session`` is given — the session's backend is used).
+        backend: ``"dataplane"`` (the default, on ``device``) or
+            ``"simulator"`` (the metered host simulator; the reference
+            package's default).  Ignored when ``session`` is given — the
+            session's backend is used.
         lam: heavy parameter; defaults to the paper's λ = Θ(p^{1/(2ρ)}).
         orientation: vertex order behind the oriented table (``"degree"``/``"id"``).
         executor: inject a configured :class:`DataplaneExecutor` (one-shot
@@ -102,19 +108,16 @@ def enumerate_subgraphs(
         fuse_semijoin: enable the beyond-paper semi-join fusion rewrite.
         session: a :class:`repro_torch.mpc.service.JoinSession` to submit
             through — the persistent-service path with plan reuse.
-        device: where a one-shot run without ``executor`` executes (``cuda``
-            unless named; ``"cpu"`` runs the plain PyTorch path).
+        device: where a one-shot dataplane run without ``executor``
+            executes (``cuda`` unless named; ``"cpu"`` runs the plain PyTorch
+            path).
+        seed: shared-randomness seed (one-shot simulator path only).
 
     Returns:
         An :class:`EnumerationResult`: exactly-once ``occurrences`` plus the
         engine run behind them.
     """
-    if session is None and backend == "simulator":
-        raise NotImplementedError(
-            "the simulator backend is not ported yet (ROADMAP Queue 1 item 6); "
-            "use backend='dataplane'"
-        )
-    if session is None and backend != "dataplane":
+    if session is None and backend not in ("dataplane", "simulator"):
         raise ValueError(f"unknown backend {backend!r}")
     compiled = compile_pattern(graph, pattern, orientation)
     q = compiled.query
@@ -126,6 +129,10 @@ def enumerate_subgraphs(
 
     if session is not None:
         res = session.submit(q, lam=lam, fuse_semijoin=fuse_semijoin).result
+    elif backend == "simulator":
+        from ..mpc.engine import mpc_join
+
+        res = mpc_join(q, p=p, seed=seed, lam=lam, fuse_semijoin=fuse_semijoin)
     else:
         from ..mpc.executors import DataplaneExecutor
         from ..mpc.program import compile_plan, fuse_semijoin_pass

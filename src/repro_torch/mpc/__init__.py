@@ -1,10 +1,14 @@
-"""The MPC join on the torch data plane: the round-program IR (``program``),
-the dataplane executor (``executors``) and the join service (``service``:
-synchronous, coalesced and asynchronous submission), with the grid geometry
-(``cartesian``, ``hypercube``) and the typed errors and fault injection
-(``faults``) they share."""
+"""The MPC join on the torch data plane and the exact-cost simulator: the
+round-program IR (``program``), its static verifier (``verify``), the two
+execution backends (``executors``: the dataplane on the card, the metered
+``simulator`` on the host with ``statistics``' three metered histogram
+rounds), the join service (``service``: synchronous, coalesced and
+asynchronous submission) and the one-shot simulator entry point
+``engine.mpc_join``, with the grid geometry and routing (``cartesian``,
+``hypercube``) and the typed errors and fault injection (``faults``) they
+share."""
 
-from .executors import BatchRunStats, DataplaneExecutor, DataplaneJoinResult, DataplaneUnsupported
+from .simulator import HashFamily, MPCSimulator
 from .faults import (
     DeadlineExceededError,
     DegradedSessionError,
@@ -15,6 +19,7 @@ from .faults import (
     InjectedDrainerError,
     InjectedFault,
     JoinServiceError,
+    ProgramVerificationError,
     QueryFailedError,
     RetryExhaustedError,
 )
@@ -36,4 +41,13 @@ from .program import (
     plan_cache_key,
     programs_coalescible,
 )
+from .executors import (
+    BatchRunStats,
+    DataplaneExecutor,
+    DataplaneJoinResult,
+    DataplaneUnsupported,
+    MPCJoinResult,
+    SimulatorExecutor,
+)
 from .service import AdmissionError, JoinSession, ServiceStats, SessionResult
+from .engine import mpc_join

@@ -9,12 +9,14 @@ exactly one machine, with load O(max_i (Π_{j≤i}|R_j|/p)^{1/i}) = the paper's 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.planner import grid_dims
+from ..core.query import Relation
+from .simulator import MPCSimulator, scatter_input
 
 
 def cp_cell_contribs(dims: Sequence[int], list_idx: int) -> Tuple[int, Tuple[int, ...]]:
@@ -49,7 +51,7 @@ def cp_cells_dev(ids: torch.Tensor, dims: Sequence[int], list_idx: int) -> torch
 
 
 class CartesianGrid:
-    """Grid geometry for Lemma 3.1. Lists must be sorted by size desc."""
+    """Grid geometry + routing for Lemma 3.1. Lists must be sorted by size desc."""
 
     def __init__(self, sizes: Sequence[int], p: int):
         self.sizes = list(sizes)
@@ -75,3 +77,90 @@ class CartesianGrid:
             prod *= float(s)
             best = max(best, (prod / self.p) ** (1.0 / i))
         return best
+
+
+def route_cartesian(
+    sim: MPCSimulator,
+    grid: CartesianGrid,
+    lists: Sequence[Tuple[object, np.ndarray, np.ndarray]],
+    deliver: Callable[[int, object, np.ndarray], None],
+    broadcast_cells: Sequence[int],
+) -> None:
+    """Route id-carrying rows. ``lists[i] = (out_tag, ids, rows)`` sorted desc by size;
+    lists with index ≥ t' are broadcast to every cell in ``broadcast_cells``.
+    Must be called inside an open round."""
+    for i, (tag, ids, rows) in enumerate(lists):
+        if rows.ndim == 1:
+            rows = rows.reshape(-1, 1)
+        if rows.shape[0] == 0:
+            continue
+        if i < grid.t_prime:
+            cells = grid.cells_for_ids(i, ids)
+            for combo in range(cells.shape[1]):
+                flat = cells[:, combo]
+                order = np.argsort(flat, kind="stable")
+                fs, rs = flat[order], rows[order]
+                uniq = np.unique(fs)
+                bounds = np.append(np.searchsorted(fs, uniq), fs.shape[0])
+                for u_i, cell in enumerate(uniq.tolist()):
+                    deliver(int(cell), tag, rs[bounds[u_i] : bounds[u_i + 1]])
+        else:
+            for cell in broadcast_cells:
+                deliver(int(cell), tag, rows)
+
+
+def cartesian_product_mpc(
+    relations: Sequence[Relation],
+    p: int,
+    seed: int = 0,
+    materialize: bool = False,
+) -> Tuple[MPCSimulator, int, Optional[np.ndarray]]:
+    """Standalone Lemma 3.1: unary/any-arity relations with disjoint schemes.
+    Returns (sim, |CP| assembled, rows if materialize). Used by bench_cartesian."""
+    rels = sorted(relations, key=len, reverse=True)
+    sizes = [len(r) for r in rels]
+    assert all(s > 0 for s in sizes)
+    grid = CartesianGrid(sizes, p)
+
+    sim = MPCSimulator(p, seed=seed)
+    # input placement: even spread, ids assigned by global position (simulating the
+    # paper's 'tuples have been labeled with ids' precondition).
+    id_rows = []
+    for i, r in enumerate(rels):
+        ids = np.arange(len(r), dtype=np.int64)
+        id_rows.append(np.concatenate([ids.reshape(-1, 1), r.data], axis=1))
+        scatter_input(sim, ("cp-in", i), id_rows[-1], seed=seed + i)
+
+    sim.begin_round("cartesian")
+    for mid in range(sim.p):
+        lists = []
+        for i in range(len(rels)):
+            local = sim.local(mid, ("cp-in", i), arity=1 + rels[i].arity)
+            lists.append((("cp", i), local[:, 0], local[:, 1:]))
+        route_cartesian(
+            sim,
+            grid,
+            lists,
+            deliver=lambda cell, tag, rows: sim.send(cell, tag, rows),
+            broadcast_cells=range(grid.size),
+        )
+    sim.end_round()
+
+    total = 0
+    out = []
+    for cell in range(grid.size):
+        frags = [sim.local(cell, ("cp", i), arity=rels[i].arity) for i in range(len(rels))]
+        if any(f.shape[0] == 0 for f in frags):
+            continue
+        count = math.prod(f.shape[0] for f in frags)
+        total += count
+        if materialize:
+            prod = frags[0]
+            for f in frags[1:]:
+                n_a, n_b = prod.shape[0], f.shape[0]
+                prod = np.concatenate(
+                    [np.repeat(prod, n_b, axis=0), np.tile(f, (n_a, 1))], axis=1
+                )
+            out.append(prod)
+    rows = np.concatenate(out, axis=0) if (materialize and out) else None
+    return sim, total, rows

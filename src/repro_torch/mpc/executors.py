@@ -1,6 +1,14 @@
-"""The dataplane execution backend for the round-program IR.
+"""Execution backends for the round-program IR (repro_torch.mpc.program).
 
-:class:`DataplaneExecutor` lowers every op of a compiled binary
+One verified plan, two backends:
+
+* :class:`SimulatorExecutor` interprets every op on the exact-cost
+  :class:`~repro_torch.mpc.simulator.MPCSimulator` — the load oracle, host
+  numpy.  It is the reference package's simulator executor with the same
+  hash keys, per-machine RNG streams and loop order, so its rows,
+  ``per_h_counts`` and per-round loads equal the reference's.
+
+* :class:`DataplaneExecutor` lowers every op of a compiled binary
 :class:`~repro_torch.mpc.program.RoundProgram` onto the torch data plane —
 one lowering rule per :class:`~repro_torch.mpc.program.RoundOp`, dispatched
 over ``program.ops``: capacity-padded hash exchanges and grid routes among p
@@ -14,6 +22,7 @@ composed with the Lemma 3.3 HyperCube (the Lemma 3.2 cell mapping lives in
 from __future__ import annotations
 
 import hashlib
+import math
 import time
 from collections import OrderedDict, defaultdict
 from dataclasses import dataclass, field
@@ -23,16 +32,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.query import Attr
+from ..core.query import Attr, JoinQuery, Relation, reference_join
 from ..core.taxonomy import heavy_masks, residual_relations
 from ..device import resolve_device
 from .faults import DeadlineExceededError, RetryExhaustedError
+from .hypercube import route_hypercube
 from .program import (
     BroadcastSizes,
     GridRoute,
     HashPartition,
     LocalJoin,
     ProgramStage,
+    RoundOp,
     RoundProgram,
     RouteResidual,
     RunConfig,
@@ -41,11 +52,588 @@ from .program import (
     StageGeometry,
     stage_geometry,
 )
+from .simulator import MPCSimulator, scatter_input
+from .verify import verify_program
 
 
 def to_host(x) -> np.ndarray:
     """Tensor (any device) or array → numpy."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@dataclass
+class MPCJoinResult:
+    p: int
+    lam: int
+    rho: float
+    m: int
+    count: int
+    rows: Optional[np.ndarray]          # over sorted(attset), if materialized
+    sim: MPCSimulator
+    per_h_counts: Dict[Tuple[Attr, ...], int]
+
+    @property
+    def bound(self) -> float:
+        """The claimed load bound m / p^{1/ρ} (polylog factors not included)."""
+        return self.m / (self.p ** (1.0 / self.rho))
+
+    @property
+    def load(self) -> int:
+        return self.sim.parallel_total_load
+
+    @property
+    def load_ratio(self) -> float:
+        return self.load / max(1.0, self.bound)
+
+
+def _send_grouped(sim: MPCSimulator, phys: np.ndarray, tag, rows: np.ndarray) -> None:
+    """Group rows by destination and send one message per destination."""
+    if rows.ndim == 1:
+        rows = rows.reshape(-1, 1)
+    if rows.shape[0] == 0:
+        return
+    order = np.argsort(phys, kind="stable")
+    ps, rs = phys[order], rows[order]
+    uniq = np.unique(ps)
+    bounds = np.append(np.searchsorted(ps, uniq), ps.shape[0])
+    for i, dst in enumerate(uniq.tolist()):
+        sim.send(int(dst), tag, rs[bounds[i] : bounds[i + 1]])
+
+
+# ---------------------------------------------------------------------------
+# Simulator backend
+# ---------------------------------------------------------------------------
+
+
+class SimulatorExecutor:
+    """Runs a compiled :class:`RoundProgram` on the exact-cost simulator.
+
+    May be handed an existing simulator (so the statistics preprocessing and
+    the program execution meter into the same round ledger — the ``mpc_join``
+    path), or a bare ``p`` to own a fresh one."""
+
+    def __init__(
+        self, sim: Optional[MPCSimulator] = None, p: Optional[int] = None, seed: int = 0
+    ):
+        if sim is None:
+            if p is None:
+                raise ValueError("need either a simulator or p")
+            sim = MPCSimulator(p, seed=seed)
+        self.sim = sim
+        self.seed = seed
+
+    # -- input placement (Scatter semantics; idempotent) ---------------------
+
+    def place_inputs(
+        self,
+        query: JoinQuery,
+        seed_offset: int = 17,
+        scatter_cache: Optional[Dict] = None,
+    ) -> None:
+        """Scatter every input relation evenly (Θ(m/p) per machine).
+
+        Shared-input path: relations carrying the same ``Relation.table`` id
+        and the same tuple set are physically one table (the subgraph
+        reduction binds k pattern edges to one edge set), so the tuples are
+        shuffled and placed ONCE and the per-edge ``("in", e)`` tags alias the
+        same numpy blocks — k logical copies cost one placement.  Aliasing is
+        invisible to the MPC accounting (Scatter is load-free initial
+        placement) and to downstream ops, which only ever read these tags;
+        it also matches the unshared behavior bit for bit, because every
+        relation was already scattered with the same seed.
+
+        ``scatter_cache`` extends the sharing *across* simulators: a
+        :class:`~repro_torch.mpc.service.JoinSession` batch passes its session dict
+        keyed by (table, p, seed), and queries binding the same physical
+        table reuse the first query's shuffled placement instead of
+        re-shuffling — bit-identical, because ``scatter_input`` is
+        deterministic in (data, seed, p)."""
+        placed: Dict[str, Tuple[object, np.ndarray]] = {}
+        for rel in query.relations:
+            tag = ("in", rel.edge)
+            if self.sim.machines_with(tag):
+                continue
+            shared = placed.get(rel.table) if rel.table is not None else None
+            if shared is not None and (
+                shared[1] is rel.data or np.array_equal(shared[1], rel.data)
+            ):
+                src = shared[0]
+                for mid in range(self.sim.p):
+                    parts = self.sim.stores[mid].get(src)
+                    if parts:
+                        self.sim.stores[mid][tag] = list(parts)
+                continue
+            ckey = None
+            if scatter_cache is not None and rel.table is not None:
+                ckey = (rel.table, self.sim.p, self.seed + seed_offset)
+                hit = scatter_cache.get(ckey)
+                if hit is not None and (
+                    hit[0] is rel.data or np.array_equal(hit[0], rel.data)
+                ):
+                    for mid, parts in enumerate(hit[1]):
+                        if parts:
+                            self.sim.stores[mid][tag] = list(parts)
+                    placed.setdefault(rel.table, (tag, rel.data))
+                    continue
+            scatter_input(self.sim, tag, rel.data, seed=self.seed + seed_offset)
+            if ckey is not None and ckey not in scatter_cache:
+                scatter_cache[ckey] = (
+                    rel.data,
+                    [
+                        list(self.sim.stores[mid].get(tag) or [])
+                        for mid in range(self.sim.p)
+                    ],
+                )
+            if rel.table is not None and rel.table not in placed:
+                placed[rel.table] = (tag, rel.data)
+
+    # -- program interpretation ----------------------------------------------
+
+    def run(self, program: RoundProgram, materialize: bool = True) -> MPCJoinResult:
+        if self.sim.p != program.p:
+            raise ValueError(f"simulator has p={self.sim.p}, program wants {program.p}")
+        self._program = program
+        self._materialize = materialize
+        self._geo: Dict[int, StageGeometry] = {}
+        self._outputs: Dict[int, List[np.ndarray]] = defaultdict(list)
+        self._counts: Dict[Tuple[Attr, ...], int] = defaultdict(int)
+
+        # H = attset(Q) emits: host-side placement, zero communication.
+        for mid, row in program.emit:
+            self._outputs[mid].append(row)
+        for hkey, c in program.emit_counts.items():
+            self._counts[hkey] += c
+
+        for op in program.ops:
+            self._dispatch(op)
+
+        rows_out = None
+        if materialize:
+            chunks = [r for parts in self._outputs.values() for r in parts]
+            rows_out = (
+                np.concatenate(chunks, axis=0)
+                if chunks
+                else np.zeros((0, len(program.out_cols)), dtype=np.int64)
+            )
+        return MPCJoinResult(
+            p=program.p,
+            lam=program.lam,
+            rho=program.rho_val,
+            m=program.stats.m,
+            count=sum(self._counts.values()),
+            rows=rows_out,
+            sim=self.sim,
+            per_h_counts=dict(self._counts),
+        )
+
+    def _dispatch(self, op: RoundOp) -> None:
+        if isinstance(op, Scatter):
+            self.place_inputs(self._program.query, op.seed_offset)
+        elif isinstance(op, RouteResidual):
+            self._op_route_residual()
+        elif isinstance(op, HashPartition):
+            self._op_hash_partition()
+        elif isinstance(op, SemiJoin):
+            self._op_semijoin(op)
+        elif isinstance(op, BroadcastSizes):
+            self._op_broadcast_sizes()
+        elif isinstance(op, GridRoute):
+            self._op_grid_route()
+        elif isinstance(op, LocalJoin):
+            self._op_local_join()
+        else:
+            raise NotImplementedError(
+                f"op {op!r} has no simulator rule: the general route's TreeSemiJoin, "
+                "ShareRoute and CellJoin arrive with its compiler (ROADMAP Queue 1 item 7)")
+
+    # -- step 1: route residual tuples ---------------------------------------
+
+    def _op_route_residual(self) -> None:
+        sim, program = self.sim, self._program
+        query, stats, p = program.query, program.stats, program.p
+        sim.begin_round("step1")
+        for mid in range(sim.p):
+            mrng = np.random.default_rng(self.seed * 1_000_003 + mid)
+            local_cache: Dict = {}
+            for rel in query.relations:
+                local = sim.local(mid, ("in", rel.edge))
+                if local.shape[0] == 0:
+                    continue
+                x_attr, y_attr = rel.scheme
+                hx = stats.is_heavy(x_attr, local[:, 0])
+                hy = stats.is_heavy(y_attr, local[:, 1])
+                local_cache[rel.edge] = (local, hx, hy)
+            for st in program.stages:
+                plan, cfg = st.plan, st.cfg
+                h = set(plan.h_set)
+                grp = cfg.step1_group
+                for rel in query.relations:
+                    if rel.edge not in local_cache:
+                        continue
+                    local, hx, hy = local_cache[rel.edge]
+                    x_attr, y_attr = rel.scheme
+                    inter = rel.edge & h
+                    if len(inter) == 2:
+                        continue
+                    if len(inter) == 0:
+                        sel = ~hx & ~hy
+                        rows = local[sel]
+                    else:
+                        (heavy_attr,) = inter
+                        if heavy_attr == x_attr:
+                            sel = (local[:, 0] == cfg.eta.value(x_attr)) & ~hy
+                            rows = local[sel][:, 1:2]   # project to light attr
+                        else:
+                            sel = (local[:, 1] == cfg.eta.value(y_attr)) & ~hx
+                            rows = local[sel][:, 0:1]
+                    if rows.shape[0] == 0:
+                        continue
+                    virt = mrng.integers(0, grp.size, size=rows.shape[0])
+                    phys = (grp.base + virt) % p
+                    _send_grouped(sim, phys, ("r1", st.hkey, st.ekey, rel.edge), rows)
+        sim.end_round()
+
+    # -- step 2a: unary partition + intersection -----------------------------
+
+    def _op_hash_partition(self) -> None:
+        sim, program = self.sim, self._program
+        query, p = program.query, program.p
+        sim.begin_round("step2-unary")
+        for st in program.stages:
+            plan, cfg = st.plan, st.cfg
+            grp = cfg.step1_group
+            for e in plan.cross_edges:
+                light_attr = next(iter(e - set(plan.h_set)))
+                tag_in = ("r1", st.hkey, st.ekey, e)
+                for mid in sim.machines_with(tag_in):
+                    rows = sim.local(mid, tag_in, arity=1)
+                    virt = sim.hashes.hash(
+                        (st.hkey, st.ekey, "sj", light_attr), rows[:, 0], grp.size
+                    )
+                    phys = (grp.base + virt) % p
+                    _send_grouped(sim, phys, ("u", st.hkey, st.ekey, light_attr, e), rows)
+        sim.end_round()
+
+        # local intersection → R''_X pieces (no communication)
+        for st in program.stages:
+            plan = st.plan
+            for x in plan.border:
+                es = [e for e in plan.cross_edges if x in e]
+                for mid in range(sim.p):
+                    pieces = []
+                    ok = True
+                    for e in es:
+                        vals = sim.local(mid, ("u", st.hkey, st.ekey, x, e), arity=1)
+                        if vals.shape[0] == 0:
+                            ok = False
+                            break
+                        pieces.append(np.unique(vals[:, 0]))
+                    if not ok:
+                        continue
+                    inter = pieces[0]
+                    for arr in pieces[1:]:
+                        inter = np.intersect1d(inter, arr, assume_unique=True)
+                    if inter.size:
+                        sim.stores[mid][("ux", st.hkey, st.ekey, x)] = [inter.reshape(-1, 1)]
+
+    # -- step 2b/2c: semi-join light edges -----------------------------------
+
+    def _filter_by_membership(self, mid, rows, col, attr, st):
+        """Keep rows whose rows[:, col] is in the machine-local R''_attr piece."""
+        piece = self.sim.local(mid, ("ux", st.hkey, st.ekey, attr), arity=1)[:, 0]
+        if piece.size == 0:
+            return rows[:0]
+        return rows[np.isin(rows[:, col], piece)]
+
+    def _op_semijoin(self, op: SemiJoin) -> None:
+        if op.phase == "x":
+            self._semijoin_x()
+        elif op.phase == "y":
+            self._semijoin_y(fused=False)
+            self._semijoin_local_y_filter()
+        elif op.phase == "fused-route":
+            self._semijoin_fused_route()
+        elif op.phase == "fused-filter":
+            self._semijoin_y(fused=True)
+            self._semijoin_local_y_filter()
+        else:
+            raise NotImplementedError(f"SemiJoin phase {op.phase!r}")
+
+    def _semijoin_x(self) -> None:
+        sim, program = self.sim, self._program
+        query, p = program.query, program.p
+        sim.begin_round("step2-bx")
+        for st in program.stages:
+            grp = st.cfg.step1_group
+            for e in st.plan.light_edges:
+                rel = query.relation_for(e)
+                x_attr = rel.scheme[0]
+                tag_in = ("r1", st.hkey, st.ekey, e)
+                for mid in sim.machines_with(tag_in):
+                    rows = sim.local(mid, tag_in, arity=2)
+                    virt = sim.hashes.hash(
+                        (st.hkey, st.ekey, "sj", x_attr), rows[:, 0], grp.size
+                    )
+                    phys = (grp.base + virt) % p
+                    _send_grouped(sim, phys, ("bx", st.hkey, st.ekey, e), rows)
+        sim.end_round()
+
+    def _semijoin_fused_route(self) -> None:
+        # Beyond-paper fusion: route directly to the Y partition; X-filtering
+        # happens at the Y-side against a replicated X piece fetched in the same
+        # round — saves one full data round when X is not a border attribute,
+        # else falls back to the two-hop detour.  See EXPERIMENTS §Perf.
+        sim, program = self.sim, self._program
+        query, p = program.query, program.p
+        sim.begin_round("step2-fused")
+        for st in program.stages:
+            grp = st.cfg.step1_group
+            for e in st.plan.light_edges:
+                rel = query.relation_for(e)
+                x_attr, y_attr = rel.scheme
+                tag_in = ("r1", st.hkey, st.ekey, e)
+                for mid in sim.machines_with(tag_in):
+                    rows = sim.local(mid, tag_in, arity=2)
+                    if x_attr not in st.plan.border:
+                        virt = sim.hashes.hash(
+                            (st.hkey, st.ekey, "sj", y_attr), rows[:, 1], grp.size
+                        )
+                        phys = (grp.base + virt) % p
+                        _send_grouped(sim, phys, ("rr", st.hkey, st.ekey, e), rows)
+                    else:
+                        virt = sim.hashes.hash(
+                            (st.hkey, st.ekey, "sj", x_attr), rows[:, 0], grp.size
+                        )
+                        phys = (grp.base + virt) % p
+                        _send_grouped(sim, phys, ("bx", st.hkey, st.ekey, e), rows)
+        sim.end_round()
+
+    def _semijoin_y(self, fused: bool) -> None:
+        sim, program = self.sim, self._program
+        query, p = program.query, program.p
+        sim.begin_round("step2-by")
+        for st in program.stages:
+            grp = st.cfg.step1_group
+            for e in st.plan.light_edges:
+                rel = query.relation_for(e)
+                x_attr, y_attr = rel.scheme
+                if fused and x_attr not in st.plan.border:
+                    continue
+                tag_in = ("bx", st.hkey, st.ekey, e)
+                for mid in sim.machines_with(tag_in):
+                    rows = sim.local(mid, tag_in, arity=2)
+                    if x_attr in st.plan.border:
+                        rows = self._filter_by_membership(mid, rows, 0, x_attr, st)
+                    if rows.shape[0] == 0:
+                        continue
+                    virt = sim.hashes.hash(
+                        (st.hkey, st.ekey, "sj", y_attr), rows[:, 1], grp.size
+                    )
+                    phys = (grp.base + virt) % p
+                    _send_grouped(sim, phys, ("rr", st.hkey, st.ekey, e), rows)
+        sim.end_round()
+
+    def _semijoin_local_y_filter(self) -> None:
+        # Y-side filtering is local (the piece lives where the hash sent the row).
+        sim, program = self.sim, self._program
+        query = program.query
+        for st in program.stages:
+            for e in st.plan.light_edges:
+                rel = query.relation_for(e)
+                y_attr = rel.scheme[1]
+                if y_attr not in st.plan.border:
+                    continue
+                tag = ("rr", st.hkey, st.ekey, e)
+                for mid in sim.machines_with(tag):
+                    rows = sim.local(mid, tag, arity=2)
+                    rows = self._filter_by_membership(mid, rows, 1, y_attr, st)
+                    sim.stores[mid][tag] = [rows]
+
+    # -- step 3 sizes: broadcast |R''_X| pieces ------------------------------
+
+    def _op_broadcast_sizes(self) -> None:
+        sim, program = self.sim, self._program
+        attset = program.query.attset
+        stages = program.stages
+        sim.begin_round("step3-sizes")
+        cfg_index = {(st.hkey, st.ekey): i for i, st in enumerate(stages)}
+        attr_index = {a: i for i, a in enumerate(attset)}
+        for st in stages:
+            for x in st.plan.isolated:
+                tag = ("ux", st.hkey, st.ekey, x)
+                for mid in sim.machines_with(tag):
+                    cnt = sim.local(mid, tag, arity=1).shape[0]
+                    msg = np.array(
+                        [[cfg_index[(st.hkey, st.ekey)], attr_index[x], mid, cnt]],
+                        dtype=np.int64,
+                    )
+                    sim.broadcast(("sz",), msg)
+        sim.end_round()
+
+        size_rows = (
+            sim.local(0, ("sz",), arity=4)
+            if sim.machines_with(("sz",))
+            else np.zeros((0, 4), np.int64)
+        )
+        piece_sizes: Dict[Tuple[int, int], List[Tuple[int, int]]] = defaultdict(list)
+        for ci, ai, mid, cnt in size_rows.tolist():
+            piece_sizes[(ci, ai)].append((mid, cnt))
+
+        for i, st in enumerate(stages):
+            entries = {
+                x: piece_sizes.get((i, attr_index[x]), []) for x in st.plan.isolated
+            }
+            self._geo[i] = stage_geometry(program, st, entries)
+
+    # -- step 3 route: Lemma 3.1 grid × Lemma 3.3 HyperCube ------------------
+
+    def _op_grid_route(self) -> None:
+        sim, program = self.sim, self._program
+        query = program.query
+        sim.begin_round("step3-route")
+        for i, st in enumerate(program.stages):
+            geo = self._geo[i]
+            if geo.skip:
+                continue
+            grp = geo.step3_group
+            hc_size, cp_size = geo.hc_size, geo.cp_size
+
+            # CP side: every grid cell is instantiated in every HC column.
+            if geo.grid:
+                for li, x in enumerate(geo.iso_order):
+                    tag = ("ux", st.hkey, st.ekey, x)
+                    for mid in sim.machines_with(tag):
+                        vals = sim.local(mid, tag, arity=1)
+                        ids = geo.offsets[(x, mid)] + np.arange(
+                            vals.shape[0], dtype=np.int64
+                        )
+                        if li < geo.grid.t_prime:
+                            cells = geo.grid.cells_for_ids(li, ids)
+                            for combo in range(cells.shape[1]):
+                                flat = cells[:, combo]
+                                for cell in np.unique(flat).tolist():
+                                    rows = vals[flat == cell]
+                                    for h_cell in range(hc_size):
+                                        v = geo.cell(cell, h_cell)
+                                        sim.send(
+                                            grp.phys(v),
+                                            ("cp", st.hkey, st.ekey, v, x),
+                                            rows,
+                                        )
+                        else:
+                            for cell in range(cp_size):
+                                for h_cell in range(hc_size):
+                                    v = geo.cell(cell, h_cell)
+                                    sim.send(
+                                        grp.phys(v), ("cp", st.hkey, st.ekey, v, x), vals
+                                    )
+
+            # HC side: every HC cell instantiated in every CP row.
+            if geo.hc_grid:
+                for e in st.plan.light_edges:
+                    rel = query.relation_for(e)
+                    tag = ("rr", st.hkey, st.ekey, e)
+                    for mid in sim.machines_with(tag):
+                        rows = sim.local(mid, tag, arity=2)
+
+                        def deliver(
+                            h_cell, out_tag, rs, _grp=grp, _geo=geo, _cp=cp_size, _st=st
+                        ):
+                            for c in range(_cp):
+                                v = _geo.cell(c, h_cell)
+                                sim.send(
+                                    _grp.phys(v), ("hc", _st.hkey, _st.ekey, v, out_tag), rs
+                                )
+
+                        route_hypercube(
+                            sim,
+                            geo.hc_grid,
+                            [(rel.scheme, e, rows)],
+                            salt=(st.hkey, st.ekey, "hc"),
+                            deliver=deliver,
+                        )
+        sim.end_round()
+
+    # -- output: local joins, exactly-once -----------------------------------
+
+    def _op_local_join(self) -> None:
+        sim, program = self.sim, self._program
+        query = program.query
+        out_cols = list(program.out_cols)
+        materialize = self._materialize
+        for i, st in enumerate(program.stages):
+            geo = self._geo[i]
+            if geo.skip:
+                continue
+            plan = st.plan
+            grp = geo.step3_group
+            l_minus_i = [a for a in plan.light if a not in plan.isolated]
+            h_count = 0
+            for v in range(grp.size):
+                mid = grp.phys(v)
+                # light side
+                if plan.light_edges:
+                    frags = []
+                    ok = True
+                    for e in plan.light_edges:
+                        rel = query.relation_for(e)
+                        rows = sim.local(mid, ("hc", st.hkey, st.ekey, v, e), arity=2)
+                        if rows.shape[0] == 0:
+                            ok = False
+                            break
+                        frags.append(Relation.make(rel.scheme, rows))
+                    if not ok:
+                        continue
+                    light_join = reference_join(JoinQuery.make(frags))
+                    light_rows = light_join.data  # over sorted(l_minus_i)
+                    if light_rows.shape[0] == 0:
+                        continue
+                else:
+                    light_rows = np.zeros((1, 0), dtype=np.int64)
+
+                # CP side
+                cp_lists = []
+                ok = True
+                for x in geo.iso_order:
+                    vals = sim.local(mid, ("cp", st.hkey, st.ekey, v, x), arity=1)
+                    vals = np.unique(vals[:, 0])
+                    if vals.size == 0:
+                        ok = False
+                        break
+                    cp_lists.append(vals)
+                if not ok:
+                    continue
+
+                n_cp = math.prod(arr.size for arr in cp_lists) if cp_lists else 1
+                n_here = light_rows.shape[0] * n_cp
+                h_count += n_here
+                if materialize and n_here:
+                    rows = light_rows
+                    cols = sorted(l_minus_i)
+                    for x, vals in zip(geo.iso_order, cp_lists):
+                        nn = rows.shape[0]
+                        rows = np.repeat(rows, vals.size, axis=0)
+                        rows = np.concatenate(
+                            [rows, np.tile(vals, nn).reshape(-1, 1)], axis=1
+                        )
+                        cols.append(x)
+                    for a in plan.h_set:
+                        rows = np.concatenate(
+                            [
+                                rows,
+                                np.full((rows.shape[0], 1), st.cfg.eta.value(a), np.int64),
+                            ],
+                            axis=1,
+                        )
+                        cols.append(a)
+                    perm = [cols.index(a) for a in out_cols]
+                    self._outputs[mid].append(rows[:, perm])
+            self._counts[st.hkey] += h_count
+
+
+# ---------------------------------------------------------------------------
+# Torch dataplane backend
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -342,8 +930,10 @@ class DataplaneExecutor:
         serial :meth:`run` of its program.  Returns ``(results, batch)``.
 
         ``config`` adds a monotonic-clock ``deadline`` checked between
-        dispatches and a per-run ``fault_plan`` override.  On any failure the
-        run's touched learned-caps entries are dropped before the exception
+        dispatches, a per-run ``fault_plan`` override and ``verify``, which
+        runs the static verifier over every program and the learned-caps
+        store before the first kernel launch.  On any failure the run's
+        touched learned-caps entries are dropped before the exception
         propagates."""
         if config is not None:
             materialize = config.materialize
@@ -357,6 +947,9 @@ class DataplaneExecutor:
                     f"sequences); got {programs[0].op_sequence()} vs "
                     f"{prog.op_sequence()}"
                 )
+        if config is not None and config.verify:
+            for prog in programs:
+                verify_program(prog, caps=self._learned_caps)
         self._retries = 0
         self._retry_log: List[Tuple[Tuple, str, str]] = []
         self._qi_retries: Dict[int, int] = defaultdict(int)

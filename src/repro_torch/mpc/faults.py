@@ -113,6 +113,32 @@ class DegradedSessionError(JoinServiceError):
             self.__cause__ = cause
 
 
+class ProgramVerificationError(JoinServiceError):
+    """A compiled :class:`~repro_torch.mpc.program.RoundProgram` failed static
+    verification (docs/design/11-verification.md).
+
+    Raised by :mod:`repro_torch.mpc.verify` *before* any kernel runs: the
+    program's structure (op stream, machine allocations, grid geometry,
+    capacity grid, packed-key eligibility) or its measured load violated an
+    invariant the planner is supposed to guarantee.
+
+    Attributes:
+        op_round: the logical round the violation belongs to (``"step1"``,
+            ``"step3-route"``, …) or None for program-wide rules.
+        rule: the verifier rule name (one of
+            :data:`repro_torch.mpc.verify.RULES`).
+        detail: human-readable specifics (offending stage, measured vs
+            predicted numbers, …).
+    """
+
+    def __init__(self, message: str, op_round: Optional[str] = None,
+                 rule: Optional[str] = None, detail: str = ""):
+        super().__init__(message)
+        self.op_round = op_round
+        self.rule = rule
+        self.detail = detail
+
+
 # -- injected-fault exceptions (what a FaultPlan raises) ---------------------
 
 

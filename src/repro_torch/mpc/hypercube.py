@@ -4,21 +4,24 @@ Machines form a grid with one dimension per attribute; a tuple of relation with 
 {X, Y} is sent to every cell whose X/Y coordinates equal h_X(u(X)), h_Y(u(Y)); a result
 tuple is assembled at exactly one cell (the one matching all its hashed coordinates).
 The dataplane grid route (``repro_torch.dataplane.grid``) enumerates cells with the
-helpers below.
+helpers below; ``route_hypercube`` is the same routing on the metered simulator
+(the skew-free subqueries of Theorem 6.2), and ``skewfree_hypercube_join`` the
+standalone one-round baseline — correct on any input, its load degrading under skew.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from scipy.optimize import linprog
 
 from ..core.hypergraph import Hypergraph
-from ..core.query import Attr
+from ..core.query import Attr, JoinQuery, Relation, reference_join
 from ..device import resolve_device
+from .simulator import MPCSimulator, scatter_input
 
 
 def uniform_lp_shares(g: Hypergraph, p: int) -> Dict[Attr, int]:
@@ -151,3 +154,98 @@ class HyperCubeGrid:
         return hc_cells_dev(
             [(coord, strides[a]) for a, coord in fixed.items()], contribs, n, device
         )
+
+
+def route_hypercube(
+    sim: MPCSimulator,
+    grid: HyperCubeGrid,
+    fragments: Iterable[Tuple[Tuple[Attr, ...], object, np.ndarray]],
+    salt,
+    deliver: Callable[[int, object, np.ndarray], None],
+) -> None:
+    """Route rows to HyperCube cells. ``fragments`` yields (scheme, out_tag, rows);
+    ``deliver(cell, out_tag, rows)`` performs the sends (caller controls the physical
+    mapping, enabling the Lemma 3.2 matrix composition). Must be called inside a round."""
+    for scheme, out_tag, rows in fragments:
+        if rows.shape[0] == 0:
+            continue
+        fixed = {}
+        for col, attr in enumerate(scheme):
+            if attr in grid.attrs:
+                share = grid.dims[grid.attrs.index(attr)]
+                fixed[attr] = sim.hashes.hash((salt, attr), rows[:, col], share)
+        cells = grid.cells_for(fixed)  # (n, n_free)
+        for combo in range(cells.shape[1]):
+            flat = cells[:, combo]
+            order = np.argsort(flat, kind="stable")
+            flat_sorted = flat[order]
+            rows_sorted = rows[order]
+            bounds = np.searchsorted(flat_sorted, np.unique(flat_sorted))
+            uniq = np.unique(flat_sorted)
+            bounds = np.append(bounds, flat.shape[0])
+            for i, cell in enumerate(uniq.tolist()):
+                deliver(int(cell), out_tag, rows_sorted[bounds[i] : bounds[i + 1]])
+
+
+def skewfree_hypercube_join(
+    query: JoinQuery,
+    shares: Dict[Attr, int],
+    p: int,
+    seed: int = 0,
+    materialize: bool = True,
+) -> Tuple[MPCSimulator, int, Optional[Relation]]:
+    """Standalone one-round HyperCube join (Lemma 3.3 / the one-round baseline).
+
+    Returns (sim with metered loads, result_count, result or None). Input placement is
+    even; the single communication round routes every tuple to its hash cells; each cell
+    joins its fragments locally. Correct on any input; optimal only when skew-free.
+    """
+    sim = MPCSimulator(p, seed=seed)
+    for rel in query.relations:
+        scatter_input(sim, ("in", rel.edge), rel.data, seed=seed + 1)
+
+    attrs = query.attset
+    grid = HyperCubeGrid(attrs, shares)
+    assert grid.size <= p, (grid.size, p)
+
+    sim.begin_round("hypercube")
+    for mid in range(sim.p):
+        frags = []
+        for rel in query.relations:
+            local = sim.local(mid, ("in", rel.edge))
+            frags.append((rel.scheme, ("hc", rel.edge), local))
+        route_hypercube(
+            sim,
+            grid,
+            frags,
+            salt="hc",
+            deliver=lambda cell, tag, rows: sim.send(cell, tag, rows),
+        )
+    sim.end_round()
+
+    total = 0
+    out_rows = []
+    for cell in range(grid.size):
+        rels = []
+        empty = False
+        for rel in query.relations:
+            rows = sim.local(cell, ("hc", rel.edge))
+            if rows.shape[0] == 0:
+                empty = True
+                break
+            rels.append(Relation.make(rel.scheme, rows))
+        if empty:
+            continue
+        local_join = reference_join(JoinQuery.make(rels))
+        total += len(local_join)
+        if materialize and len(local_join):
+            out_rows.append(local_join.data)
+    result = None
+    if materialize:
+        data = (
+            np.concatenate(out_rows, axis=0)
+            if out_rows
+            else np.zeros((0, len(attrs)), dtype=np.int64)
+        )
+        result = Relation.make(attrs, data)
+    return sim, total, result

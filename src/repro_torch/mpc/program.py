@@ -27,13 +27,17 @@ the two-round semi-join with the beyond-paper fused variant (one data round
 saved when a light edge's X attribute is not a border attribute).
 
 Arbitrary-arity queries (any relation with arity ≠ 2, or ``force_general``)
-are not compiled by this package yet: ``compile_plan`` raises
-``NotImplementedError`` for them.
+need the general route (join trees, generalized HyperCube shares: ROADMAP
+Queue 1 item 7): ``compile_plan`` raises ``NotImplementedError`` for them.
+
+``compile_plan(verify=...)`` runs the static verifier
+(:mod:`repro_torch.mpc.verify`) over every program it returns.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -349,11 +353,25 @@ class RunConfig:
             executor's injection sites for this run, overriding any plan the
             executor itself was constructed with.  None = use the
             executor's own (which defaults to no injection).
+        verify: re-run the static verifier (``repro_torch.mpc.verify``) over
+            every program of this run — including the executor's
+            learned-caps store — before any kernel is launched.  Off by
+            default; compile-time verification is governed separately by
+            ``compile_plan(verify=...)`` / the ``REPRO_VERIFY`` env var.
     """
 
     materialize: bool = True
     deadline: Optional[float] = None
     fault_plan: Optional[object] = None
+    verify: bool = False
+
+
+def _verify_default() -> bool:
+    """Resolve compile-time verification from the ``REPRO_VERIFY`` env var
+    (the test suite's conftest turns it on for every test)."""
+    return os.environ.get("REPRO_VERIFY", "0").strip().lower() not in (
+        "", "0", "false", "off",
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +385,7 @@ def compile_plan(
     p: int,
     h_subsets: Optional[Sequence[Sequence[Attr]]] = None,
     fuse_semijoin: bool = False,
+    verify: Optional[bool] = None,
 ) -> RoundProgram:
     """Compile the full H-taxonomy of ``query`` into a :class:`RoundProgram`.
 
@@ -375,14 +394,19 @@ def compile_plan(
     no communication), residual sizing, step-1 machine allocation, and the
     H = attset(Q) emit set.  ``h_subsets`` restricts the taxonomy (testing).
 
+    ``verify`` runs the static verifier (``repro_torch.mpc.verify``) over the
+    compiled program before returning it; None defers to the ``REPRO_VERIFY``
+    env var (on in the test suite, off by default — the service layer times
+    its own verification pass).
+
     Arbitrary-arity queries (``query.is_general``) raise
-    ``NotImplementedError``: this package does not implement the general
-    route (join trees, generalized HyperCube shares) yet.
+    ``NotImplementedError``: they need the general route (join trees,
+    generalized HyperCube shares; ROADMAP Queue 1 item 7).
     """
     if query.is_general:
         raise NotImplementedError(
-            "arbitrary-arity queries (TreeSemiJoin/ShareRoute/CellJoin) are not "
-            "implemented in this package yet; only binary Theorem 6.2 programs compile"
+            "arbitrary-arity queries need the general route (TreeSemiJoin/ShareRoute/"
+            "CellJoin, ROADMAP Queue 1 item 7); only binary Theorem 6.2 programs compile"
         )
 
     attset = query.attset
@@ -433,6 +457,10 @@ def compile_plan(
     )
     if fuse_semijoin:
         program = fuse_semijoin_pass(program)
+    if _verify_default() if verify is None else verify:
+        from .verify import verify_program  # local: verify imports this module
+
+        verify_program(program)
     return program
 
 

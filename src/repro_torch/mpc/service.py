@@ -10,10 +10,14 @@ shapes over and over can reuse it.  :class:`JoinSession` keeps:
     sweep; the cached program is rebound onto the submitted data.
   * **one executor** — a :class:`DataplaneExecutor` living as long as the
     session, whose learned capacities make a warm repeat of a query run with
-    zero overflow retries.
+    zero overflow retries.  ``backend="simulator"`` runs each submit instead
+    on a fresh metered :class:`~repro_torch.mpc.simulator.MPCSimulator`
+    (host numpy): exact per-round loads, the statistics from the three
+    metered rounds of ``distributed_stats``.
   * **batch submission** — :meth:`JoinSession.submit_batch` shares the
     histogram's per-table unique-count pass across queries binding the same
-    physical ``Relation.table``.
+    physical ``Relation.table`` (on the simulator: the first query's scatter
+    placement).
   * **cross-query coalescing** — :meth:`JoinSession.submit_async` enqueues
     requests into a bounded submission queue; a drainer thread groups queued
     queries whose compiled programs share a
@@ -34,7 +38,10 @@ shapes over and over can reuse it.  :class:`JoinSession` keeps:
 
 Every submit returns a :class:`SessionResult` with per-phase latency and
 cache provenance; :attr:`JoinSession.stats` accumulates the session-wide
-:class:`ServiceStats`.
+:class:`ServiceStats`.  With ``verify`` on (the ``REPRO_VERIFY`` env var by
+default) a plan-cache miss runs the full static verifier
+(:mod:`repro_torch.mpc.verify`) before its first kernel, and a hit re-checks
+the fresh bindings.
 """
 
 from __future__ import annotations
@@ -55,15 +62,26 @@ from ..core.planner import heavy_parameter
 from ..core.query import Attr, JoinQuery
 from ..core.taxonomy import HeavyStats, compute_stats
 from ..train.fault import Heartbeat, StragglerMonitor
-from .executors import DataplaneExecutor, DataplaneJoinResult
+from .executors import DataplaneExecutor, DataplaneJoinResult, MPCJoinResult, SimulatorExecutor
 from .faults import (
     DeadlineExceededError,
     DegradedSessionError,
     JoinServiceError,
+    ProgramVerificationError,
     QueryFailedError,
     describe_query,
 )
-from .program import RoundProgram, RunConfig, coalesce_signature, compile_plan, plan_cache_key
+from .program import (
+    RoundProgram,
+    RunConfig,
+    _verify_default,
+    coalesce_signature,
+    compile_plan,
+    plan_cache_key,
+)
+from .simulator import MPCSimulator
+from .statistics import distributed_stats
+from .verify import verify_bindings, verify_program
 
 #: sliding-window size of the ServiceStats latency samples.
 LATENCY_WINDOW = 512
@@ -100,7 +118,11 @@ class ServiceStats:
     ``drainer_crashes``, ``slow_batches`` (drain batches the
     :class:`~repro_torch.train.fault.StragglerMonitor` flagged) and
     ``quarantined_caps``/``quarantined_plans`` (cache entries dropped because
-    a failed attempt touched them)."""
+    a failed attempt touched them).
+
+    The verification layer adds ``verified`` (submits whose compiled program
+    passed the *full* static verifier — plan-cache misses only) and
+    ``verify_us`` (all time spent verifying, full or bindings-only)."""
 
     submits: int = 0
     plan_hits: int = 0
@@ -126,6 +148,8 @@ class ServiceStats:
     quarantined_plans: int = 0
     slo_ok: int = 0
     slo_violations: int = 0
+    verified: int = 0
+    verify_us: float = 0.0
     cold_us: Deque[float] = field(default_factory=lambda: deque(maxlen=LATENCY_WINDOW))
     warm_us: Deque[float] = field(default_factory=lambda: deque(maxlen=LATENCY_WINDOW))
     e2e_us: Deque[float] = field(default_factory=lambda: deque(maxlen=LATENCY_WINDOW))
@@ -156,9 +180,12 @@ class ServiceStats:
 @dataclass
 class SessionResult:
     """One submit's answer plus its service provenance: ``result`` is the
-    executor's :class:`DataplaneJoinResult`, ``plan_cache_hit`` says whether
+    backend's result (:class:`DataplaneJoinResult`, or
+    :class:`MPCJoinResult` on the simulator), ``plan_cache_hit`` says whether
     the plan LRU served the compiled program, and the ``*_us`` fields break
-    the submit's wall clock into statistics / compile / execute phases.
+    the submit's wall clock into statistics / compile / verify / execute
+    phases.  ``verified`` is True when the full static verifier ran
+    (plan-cache miss); a hit re-checks bindings only and reports False.
 
     Coalescing provenance: ``coalesced`` is True when the request ran inside
     a multi-query scheduler pass (its ``execute_us`` is then the pass's
@@ -168,7 +195,7 @@ class SessionResult:
     :meth:`JoinSession.submit_async` requests (time queued, and enqueue to
     resolution)."""
 
-    result: DataplaneJoinResult
+    result: Union[DataplaneJoinResult, MPCJoinResult]
     plan_key: Tuple
     plan_cache_hit: bool
     stats_us: float
@@ -180,6 +207,8 @@ class SessionResult:
     deduplicated: bool = False
     queue_us: float = 0.0
     e2e_us: float = 0.0
+    verified: bool = False
+    verify_us: float = 0.0
 
     @property
     def count(self) -> int:
@@ -195,23 +224,23 @@ class SessionResult:
 
     @property
     def retries(self) -> int:
-        return self.result.retries
+        return getattr(self.result, "retries", 0)
 
     @property
     def retry_log(self) -> list:
-        return self.result.retry_log
+        return getattr(self.result, "retry_log", [])
 
     @property
     def caps_hits(self) -> int:
-        return self.result.caps_hits
+        return getattr(self.result, "caps_hits", 0)
 
     @property
     def caps_misses(self) -> int:
-        return self.result.caps_misses
+        return getattr(self.result, "caps_misses", 0)
 
     @property
     def caps_evictions(self) -> int:
-        return self.result.caps_evictions
+        return getattr(self.result, "caps_evictions", 0)
 
 
 @dataclass
@@ -229,11 +258,14 @@ class _Request:
     t_enqueue: Optional[float] = None     # perf_counter at queue admission
     deadline: Optional[float] = None      # absolute monotonic budget (or None)
     # filled by _prepare:
+    executor: object = None
     program: Optional[RoundProgram] = None
     plan_key: Optional[Tuple] = None
     plan_cache_hit: bool = False
     stats_us: float = 0.0
     compile_us: float = 0.0
+    verified: bool = False
+    verify_us: float = 0.0
     error: Optional[BaseException] = None
 
 
@@ -249,9 +281,11 @@ class JoinSession:
         p: machine count every submitted plan is compiled for (the
             executor's p as well).
         device: where the data plane runs — ``cuda`` by default (raises when
-            CUDA is absent); ``"cpu"`` runs the plain PyTorch path.
+            CUDA is absent); ``"cpu"`` runs the plain PyTorch path.  Unused
+            on the simulator backend.
         executor: optionally inject a configured :class:`DataplaneExecutor`
             (e.g. ``batch_stages=False``); ``device`` is then ignored.
+            Ignored on the simulator backend.
         plan_cache_size: LRU bound on cached compiled programs.
         fuse_semijoin: default fusion flag for submits that don't pass one.
         slo_target_us: per-query latency SLO counted into ``stats`` (async
@@ -269,8 +303,17 @@ class JoinSession:
             drain batch.
         straggler_factor: drain batches slower than ``factor ×`` the running
             EMA count into ``stats.slow_batches``.
-        backend: ``"dataplane"``, the only backend this package has;
-            ``"simulator"`` raises :class:`NotImplementedError`.
+        backend: ``"dataplane"`` (default — the long-lived
+            :class:`DataplaneExecutor`) or ``"simulator"`` (a fresh metered
+            :class:`~repro_torch.mpc.simulator.MPCSimulator` per submit, host
+            numpy, so each query gets its own load ledger; plans are still
+            cached across submits, and coalesced submits run serially).
+        seed: shared-randomness seed of the simulator (scatter + routing
+            hashes).
+        verify: run the static verifier on every submit — the full pass on a
+            plan-cache miss (with the executor's learned capacities), the
+            bindings re-check on a hit.  None defers to the ``REPRO_VERIFY``
+            env var (off unless set).
 
     Thread-safety: all executor access is serialized under one re-entrant
     lock; the drainer runs its batches on the session's device and the
@@ -291,28 +334,32 @@ class JoinSession:
         heartbeat_path=None,
         straggler_factor: float = 2.5,
         backend: str = "dataplane",
+        seed: int = 0,
+        verify: Optional[bool] = None,
     ):
-        if backend == "simulator":
-            raise NotImplementedError(
-                "the simulator backend is not ported yet (ROADMAP Queue 1 item 6)"
-            )
-        if backend != "dataplane":
+        if backend not in ("dataplane", "simulator"):
             raise ValueError(f"unknown backend {backend!r}")
         if max_coalesce < 1:
             raise ValueError("max_coalesce must be >= 1")
         self.p = p
         self.backend = backend
-        self.executor = executor if executor is not None else DataplaneExecutor(p, device=device)
+        self.seed = seed
+        self.verify = _verify_default() if verify is None else bool(verify)
+        self.executor: Optional[DataplaneExecutor] = None
+        if backend == "dataplane":
+            self.executor = (
+                executor if executor is not None else DataplaneExecutor(p, device=device)
+            )
         self.fuse_semijoin = fuse_semijoin
         self.plan_cache_size = plan_cache_size
         self.slo_target_us = slo_target_us
         self.max_coalesce = max_coalesce
         self.async_autostart = async_autostart
         self.fault_plan = fault_plan
-        dev = self.executor.device
         #: the card the drainer thread runs on (None on the CPU)
         self._cuda_index: Optional[int] = None
-        if dev.type == "cuda":
+        dev = self.executor.device if self.executor is not None else None
+        if dev is not None and dev.type == "cuda":
             self._cuda_index = dev.index if dev.index is not None else torch.cuda.current_device()
         self._plans: "OrderedDict[Tuple, RoundProgram]" = OrderedDict()
         self.stats = ServiceStats()
@@ -345,7 +392,9 @@ class JoinSession:
         Args:
             query: the join query (concrete relations attached).
             lam: heavy parameter λ; default Θ(p^{1/(2ρ)}) per the paper.
-            stats: inject a precomputed histogram (default: computed).
+            stats: inject a precomputed histogram; by default the simulator
+                backend runs the 3 metered rounds of the distributed protocol
+                and the dataplane backend computes the centralized oracle.
             materialize: return result rows (False: counts only).
             h_subsets: restrict the H-taxonomy (testing).
             fuse_semijoin: override the session's default fusion flag.
@@ -438,7 +487,7 @@ class JoinSession:
         submission dedup, same demux.  Results are in submission order and
         byte-identical to one :meth:`submit` per query.  The first failing
         member's error raises (traceback preserved)."""
-        share: Dict = {"unique": {}}
+        share: Dict = {"scatter": {}, "unique": {}}
         reqs = [
             _Request(
                 query=q, lam=lam, materialize=materialize,
@@ -651,8 +700,16 @@ class JoinSession:
                     self.p, float(rho(req.query))
                 )
             t0 = time.perf_counter()
-            if stats is None:
-                stats = compute_stats(req.query, lam, unique_memo=share.get("unique"))
+            if self.backend == "simulator":
+                sim = MPCSimulator(self.p, seed=self.seed)
+                executor: object = SimulatorExecutor(sim, seed=self.seed)
+                executor.place_inputs(req.query, scatter_cache=share.get("scatter"))
+                if stats is None:
+                    stats = distributed_stats(sim, req.query, lam)
+            else:
+                executor = self.executor
+                if stats is None:
+                    stats = compute_stats(req.query, lam, unique_memo=share.get("unique"))
             req.stats_us = (time.perf_counter() - t0) * 1e6
 
             key = plan_cache_key(req.query, stats, self.p, req.h_subsets, fuse)
@@ -661,17 +718,31 @@ class JoinSession:
                 self._plans.move_to_end(key)
                 req.program = cached.rebind(req.query)
                 self.stats.plan_hits += 1
+                if self.verify:
+                    # warm path: the cached plan was verified when it was
+                    # compiled; only the fresh bindings need re-checking
+                    t0 = time.perf_counter()
+                    verify_bindings(req.program)
+                    req.verify_us = (time.perf_counter() - t0) * 1e6
             else:
                 t0 = time.perf_counter()
                 req.program = compile_plan(req.query, stats, self.p,
-                                           h_subsets=req.h_subsets, fuse_semijoin=fuse)
+                                           h_subsets=req.h_subsets, fuse_semijoin=fuse,
+                                           verify=False)  # timed separately below
                 req.compile_us = (time.perf_counter() - t0) * 1e6
+                if self.verify:
+                    t0 = time.perf_counter()
+                    verify_program(req.program,
+                                   caps=getattr(executor, "_learned_caps", None))
+                    req.verify_us = (time.perf_counter() - t0) * 1e6
+                    req.verified = True
                 # cache plan metadata only: data is rebound on every hit
                 self._plans[key] = replace(req.program, query=None)
                 self.stats.plan_misses += 1
                 while len(self._plans) > self.plan_cache_size:
                     self._plans.popitem(last=False)
                     self.stats.plan_evictions += 1
+            req.executor = executor
             req.plan_key = key
             req.plan_cache_hit = cached is not None
         except BaseException as e:
@@ -687,11 +758,13 @@ class JoinSession:
              key AND the same bound table objects — run once and share the
              result (the ``deduped`` counter; results are read-only).
 
-        Scheduler counters aggregate into :attr:`stats` once per
-        ``run_many`` call."""
+        The simulator backend runs the requests serially instead, each on its
+        own metered simulator.  Scheduler counters aggregate into
+        :attr:`stats` once per ``run_many`` call."""
         with self._lock:
             t_batch = time.perf_counter()
-            share: Dict = {"unique": {}}      # per-table memos of requests without their own
+            # per-table memos of requests without their own
+            share: Dict = {"scatter": {}, "unique": {}}
             for req in reqs:
                 self._prepare(req, req.batch if req.batch is not None else share)
 
@@ -708,9 +781,22 @@ class JoinSession:
             outs: Dict[int, SessionResult] = {}
             groups: "OrderedDict[Tuple, List[_Request]]" = OrderedDict()
             for req in reqs:
-                if req.error is None:
-                    gkey = (coalesce_signature(req.program), req.materialize)
-                    groups.setdefault(gkey, []).append(req)
+                if req.error is not None:
+                    continue
+                if self.backend == "simulator":
+                    t0 = time.perf_counter()
+                    try:
+                        res = req.executor.run(req.program, materialize=req.materialize)
+                    except BaseException as e:
+                        req.error = e
+                        continue
+                    outs[id(req)] = self._wrap(
+                        req, res, (time.perf_counter() - t0) * 1e6, len(reqs),
+                        coalesced=False, deduplicated=False,
+                    )
+                    continue
+                gkey = (coalesce_signature(req.program), req.materialize)
+                groups.setdefault(gkey, []).append(req)
             for members in groups.values():
                 # identical-submission dedup: same plan key + same bound
                 # table objects ⇒ same bytes out, so run once and share
@@ -764,8 +850,9 @@ class JoinSession:
                 self.stats.coalesced_queries += len(reqs)
                 self.stats.max_coalesced_batch = max(self.stats.max_coalesced_batch, len(reqs))
             self.stats.cached_plans = len(self._plans)
-            # mirror of the executor's lifetime quarantine counter
-            self.stats.quarantined_caps = self.executor.caps_quarantined
+            if self.executor is not None:
+                # mirror of the executor's lifetime quarantine counter
+                self.stats.quarantined_caps = self.executor.caps_quarantined
 
             t_done = time.perf_counter()
             final: List[Union[SessionResult, BaseException]] = []
@@ -849,20 +936,25 @@ class JoinSession:
                 out.__cause__ = e
                 return out
             return e
-        if isinstance(e, (QueryFailedError, DegradedSessionError, AdmissionError)):
+        if isinstance(e, (QueryFailedError, DegradedSessionError, AdmissionError,
+                          ProgramVerificationError)):
             return e
         return QueryFailedError(req.query, e, attempt_log=getattr(e, "attempt_log", ()))
 
-    def _wrap(self, req: _Request, res: DataplaneJoinResult, execute_us: float,
-              batch_size: int, coalesced: bool, deduplicated: bool) -> SessionResult:
-        total_us = req.stats_us + req.compile_us + execute_us
+    def _wrap(self, req: _Request, res: Union[DataplaneJoinResult, MPCJoinResult],
+              execute_us: float, batch_size: int, coalesced: bool,
+              deduplicated: bool) -> SessionResult:
+        total_us = req.stats_us + req.compile_us + req.verify_us + execute_us
         self.stats.submits += 1
+        if req.verified:
+            self.stats.verified += 1
+        self.stats.verify_us += req.verify_us
         (self.stats.warm_us if req.plan_cache_hit else self.stats.cold_us).append(total_us)
         return SessionResult(
             result=res, plan_key=req.plan_key, plan_cache_hit=req.plan_cache_hit,
             stats_us=req.stats_us, compile_us=req.compile_us, execute_us=execute_us,
             total_us=total_us, coalesced=coalesced, batch_size=batch_size,
-            deduplicated=deduplicated,
+            deduplicated=deduplicated, verified=req.verified, verify_us=req.verify_us,
         )
 
     # -- batch entry ----------------------------------------------------------
@@ -876,10 +968,13 @@ class JoinSession:
     ) -> List[SessionResult]:
         """Answer a batch of queries serially, sharing per-table work: queries
         binding the same physical ``Relation.table`` compute the histogram's
-        per-(table, column) unique-count pass once.  Results are identical to
-        one :meth:`submit` per query, in order (for one coalesced scheduler
-        pass over the set, see :meth:`submit_coalesced`)."""
-        batch: Dict = {"unique": {}}
+        per-(table, column) unique-count pass once on the dataplane, and on
+        the simulator install the first query's seeded scatter placement into
+        every later query's simulator (bit-identical to re-scattering).
+        Results are identical to one :meth:`submit` per query, in order (for
+        one coalesced scheduler pass over the set, see
+        :meth:`submit_coalesced`)."""
+        batch: Dict = {"scatter": {}, "unique": {}}
         return [
             self.submit(q, lam=lam, materialize=materialize, fuse_semijoin=fuse_semijoin,
                         _batch=batch)

@@ -12,7 +12,8 @@ generator), and every check is exact:
 * ``enumerate_subgraphs(backend="dataplane")`` and ``JoinSession.submit_pattern``
   at p=8 on the CPU return occurrences byte-equal to the reference's run on
   the JAX DataplaneExecutor (and to the oracle), with equal count and
-  embeddings.  The simulator backend is not ported and raises.
+  embeddings.  The simulator backend's parity is in
+  tests/test_torch_simulator.py.
 """
 
 import functools
@@ -285,10 +286,15 @@ def test_submit_pattern_matches_reference_session():
 
 
 def test_simulator_backend_raises_instead_of_falling_back():
+    """``backend="simulator"`` runs the metered simulator — never a silent
+    fallback to the data plane — and an unknown backend raises."""
     g = tg.Graph.from_edges([[0, 1], [1, 2], [0, 2]])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tg.enumerate_subgraphs(g, tg.triangle(), p=4, backend="simulator")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        JoinSession(p=4, device="cpu", backend="simulator")
+    got = tg.enumerate_subgraphs(g, tg.triangle(), p=4, backend="simulator")
+    assert got.backend == "simulator" and got.occurrences.tolist() == [[0, 1, 2]]
+    assert got.engine.sim.p == 4 and got.engine.load > 0
+    session = JoinSession(p=4, device="cpu", backend="simulator")
+    assert session.executor is None
     with pytest.raises(ValueError):
         tg.enumerate_subgraphs(g, tg.triangle(), p=4, backend="nonsense")
+    with pytest.raises(ValueError):
+        JoinSession(p=4, device="cpu", backend="nonsense")

@@ -45,7 +45,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.kernels, repro_torch.dataplane\n"
         "import repro_torch.mpc.executors, repro_torch.mpc.service\n"
-        "from repro_torch.mpc import JoinSession, DataplaneExecutor\n"
+        "from repro_torch.mpc import JoinSession, DataplaneExecutor, mpc_join\n"
+        "import repro_torch.mpc.verify, repro_torch.analysis, repro_torch.graph\n"
+        "import repro_torch.core.icp, repro_torch.core.em_model, repro_torch.core.jointree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
