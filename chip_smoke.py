@@ -43,7 +43,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      merge_join_pairs and hash_partition_pack also the device time and
      device operations per call (torch.profiler), for merge_join_pairs the
      bytes its design moves, and one line of hash_partition_pack at
-     S=64, N=2^20, P=64 beside its bound;
+     S=64, N=2^20, P=64 beside its bound; then each join kernel held
+     against its plain version, bit for bit, on the largest inputs the
+     "general" phase's timed submits gave it, and timed beside it;
   7. the kernel library at model widths: flash_attention at h2o-danube-1.8b
      prefill, ssd_chunk at mamba2-780m, hash_partition over 2M keys (and
      2M int64 keys through fold64), launches counted over one call each,
@@ -87,10 +89,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      slope within 0.25 of -1/rho, ``check_load`` passing in all 36 runs);
      and ``all_icp_checks`` on bench_isolated_cp.py's hub star (lambda 4, 8,
      16) within Theorem 5.4's and Lemma 5.5's bounds;
+  general: the general (arbitrary-arity) route through ``JoinSession.submit``
+     (Yannakakis sweeps, share route, cell join): ``ssb-star-sf1``, the Star
+     Schema Benchmark's SF1 lineorder ⋈ customer ⋈ supplier ⋈ part as the
+     ``star3`` family (6,001,215 uniform fact draws at SF1's cardinalities,
+     ``default_rng(18)``), p=64, ``verify=True``, rows against a numpy
+     oracle, warm byte-identical to cold with no retries, then an untimed
+     submit for each op's peak memory and a profiled warm submit (host
+     functions, the card's idle share); ``ssb-q41``, the same tables with
+     the dimensions cut to SSB Q4.1's predicates so that both sweeps drop
+     fact rows, against its numpy oracle, then one submit with every join
+     kernel call held against its plain version; ``triangle-2M-general``,
+     phase 3's table with ``force_general=True``, equal to phase 3's rows
+     as a sorted set; and bench_acyclic.py's four cases at p=8,
+     byte-identical to the CPU session and equal to ``backend="simulator"``
+     with ``check_load`` passing; cold and warm wall time, the session's µs
+     split, the host share of ``execute_us``, retries, launches and peak
+     device memory logged per configuration;
   then the ``kernels`` JSON line (six rows).  Phases 3-5 give its launch
   counts, on a session that does not verify (the service's default);
-  patterns, service, verify and simulator run after them (phase 6 and 7
-  follow).
+  patterns, service, verify, simulator and general run after them (phase 6
+  and 7 follow).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 
@@ -280,33 +299,67 @@ def reset_counts() -> None:
 
 class InputCapture:
     """Keeps a copy of the largest inputs each kernel wrapper was called with
-    (by element count), so phase 6 times the kernels at main-path shapes."""
+    (by element count), so phase 6 times the kernels at main-path shapes.
 
-    def __init__(self):
-        self.best = {}
+    With ``check=True`` it keeps no copies and instead holds every call's
+    result against the kernel's plain version on the same inputs (bit for
+    bit; raises on the first difference), counting the calls it checked
+    and, for merge_join_counts, the probe keys that matched nothing (the
+    non-members a semijoin must drop)."""
+
+    def __init__(self, check: bool = False):
+        self.check = check
+        self.best, self.checked, self.largest = {}, {}, {}
+        self.unmatched = 0
         self._restore = []
 
     def install(self):
+        import torch
+        from repro_torch.kernels import ref
+
         hp, mj = kernel_modules()
         for mod, attr, name in ((hp, "hash_partition_pack_cuda", "hash_partition_pack"),
                                 (mj, "merge_join_counts_cuda", "merge_join_counts"),
                                 (mj, "merge_join_pairs_cuda", "merge_join_pairs")):
             orig = getattr(mod, attr)
+            plain = getattr(ref, f"{name}_ref")
 
-            def rec(*args, _orig=orig, _name=name):
+            def rec(*args, _orig=orig, _plain=plain, _name=name):
                 size = sum(a.numel() for a in args if hasattr(a, "numel"))
-                if self.best.get(_name, (-1,))[0] < size:
-                    self.best[_name] = (size, [a.clone() if hasattr(a, "clone") else a
-                                               for a in args])
-                return _orig(*args)
+                if not self.check:
+                    if self.best.get(_name, (-1,))[0] < size:
+                        self.best[_name] = (size, [a.clone() if hasattr(a, "clone") else a
+                                                   for a in args])
+                    return _orig(*args)
+                got = _orig(*args)
+                for g, w in zip(got, _plain(*args)):
+                    if g.shape != w.shape or not torch.equal(g.to(torch.int64),
+                                                             w.to(torch.int64)):
+                        raise AssertionError(f"{_name}: kernel differs from its plain version "
+                                             f"at {[tuple(a.shape) for a in args[:2]]}")
+                self.checked[_name] = self.checked.get(_name, 0) + 1
+                if size > self.largest.get(_name, (-1,))[0]:
+                    self.largest[_name] = (size, [tuple(a.shape) for a in args[:2]])
+                if _name == "merge_join_counts":
+                    lower, upper = got
+                    self.unmatched += int(((lower == upper) & (args[0] != INT32_MAX)).sum())
+                return got
 
             setattr(mod, attr, rec)
             self._restore.append((mod, attr, orig))
 
     def remove(self):
-        for mod, attr, orig in self._restore:
+        for mod, attr, orig in reversed(self._restore):
             setattr(mod, attr, orig)
         self._restore = []
+
+    def __enter__(self):
+        self.install()
+        return self
+
+    def __exit__(self, *exc):
+        self.remove()
+        return False
 
 
 def time_rounds(torch, kern, plain, library):
@@ -658,25 +711,95 @@ def phase_kernels(torch, dev) -> None:
             f"P={parts}: equal")
 
 
+class OpPeaks:
+    """Peak device memory of each op a ``DataplaneExecutor`` lowers: wraps
+    the instance's lowering rules (``run_many`` looks them up by name) for
+    the length of a ``with`` block."""
+
+    def __init__(self, torch, executor):
+        self.torch, self.executor, self.peaks = torch, executor, {}
+
+    def __enter__(self):
+        for op, name in type(self.executor)._LOWERING.items():
+            rule = getattr(self.executor, name)
+
+            def wrapped(*a, _rule=rule, _op=op.__name__):
+                self.torch.cuda.synchronize()
+                self.torch.cuda.reset_peak_memory_stats()
+                try:
+                    return _rule(*a)
+                finally:
+                    self.torch.cuda.synchronize()
+                    peak = self.torch.cuda.max_memory_allocated()
+                    self.peaks[_op] = max(self.peaks.get(_op, 0), peak)
+
+            setattr(self.executor, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name in type(self.executor)._LOWERING.values():
+            delattr(self.executor, name)
+        return False
+
+
+def op_peaks(torch, session, query, lam, tag: str) -> dict:
+    """One more submit, untimed, under ``OpPeaks``: each op's peak device
+    memory (the wrapping syncs the card around every op, so no timed submit
+    runs under it)."""
+    base = torch.cuda.memory_allocated()
+    with OpPeaks(torch, session.executor) as peaks:
+        session.submit(query, lam=lam)
+    log(f"[{tag}] peak device GiB by op (untimed submit; {base / 2**30:.2f} GiB allocated "
+        "before it): " + json.dumps({k: round(v / 2**30, 2) for k, v in peaks.peaks.items()}))
+    return peaks.peaks
+
+
 def run_submit(torch, session, query, lam, label: str) -> dict:
+    """One submit with the figures the join phases log: wall s, the
+    session's µs split, Σ round_us, the host share of ``execute_us`` outside
+    the scheduler's rounds, retries, kernel launches and the submit's peak
+    device memory (read once, after the timed window) beside what was
+    allocated when it began."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     before = launch_counts(JOIN_KERNELS)
     t0 = time.perf_counter()
     res = session.submit(query, lam=lam)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     after = launch_counts(JOIN_KERNELS)
     r = res.result
+    rounds_us = sum(r.round_us.values())
     info = {
         "label": label, "wall_s": wall, "count": res.count, "retries": res.retries,
         "plan_cache_hit": res.plan_cache_hit, "stats_us": res.stats_us,
-        "compile_us": res.compile_us, "execute_us": res.execute_us,
-        "phase_us": r.phase_us, "round_us": r.round_us, "dispatches": r.dispatches,
+        "compile_us": res.compile_us, "verify_us": res.verify_us,
+        "execute_us": res.execute_us, "round_us_sum": rounds_us,
+        "host_us": res.execute_us - rounds_us, "round_us": r.round_us,
+        "phase_us": r.phase_us, "dispatches": r.dispatches,
         "launches": {k: after[k] - before[k] for k in after},
+        "peak_device_bytes": peak, "base_device_bytes": base,
         "stages": len(session._plans[res.plan_key].stages),
     }
     log(f"[{label}] {json.dumps(info, default=float)}")
     return {"res": res, **info}
+
+
+def cold_warm(torch, session, query, lam, tag: str) -> tuple:
+    """Cold then warm submit: warm is a plan-cache hit, retries nothing and
+    returns the cold rows byte for byte."""
+    cold = run_submit(torch, session, query, lam, f"{tag}/cold")
+    warm = run_submit(torch, session, query, lam, f"{tag}/warm")
+    if cold["plan_cache_hit"] or not warm["plan_cache_hit"]:
+        raise AssertionError(f"{tag}: plan-cache hits cold "
+                             f"{cold['plan_cache_hit']}, warm {warm['plan_cache_hit']}")
+    if warm["retries"] != 0:
+        raise AssertionError(f"{tag}: warm submit retried {warm['retries']} times")
+    if not same_rows(cold["res"], warm["res"]):
+        raise AssertionError(f"{tag}: warm rows differ from cold rows")
+    return cold, warm
 
 
 def phase_triangle(torch, session, n_vertices, n_edges, skew, seed, lam, tag) -> dict:
@@ -689,14 +812,9 @@ def phase_triangle(torch, session, n_vertices, n_edges, skew, seed, lam, tag) ->
         f"{int(deg.max())}, {paths} oriented 2-paths, {want} triangles (oracle); "
         f"host set-up {time.perf_counter() - t0:.1f} s")
     q = triangle_query(oriented)
-    cold = run_submit(torch, session, q, lam, f"{tag}/cold")
-    warm = run_submit(torch, session, q, lam, f"{tag}/warm")
+    cold, warm = cold_warm(torch, session, q, lam, tag)
     if cold["count"] != want or warm["count"] != want:
         raise AssertionError(f"{tag}: counts {cold['count']}/{warm['count']} != oracle {want}")
-    if cold["res"].rows.tobytes() != warm["res"].rows.tobytes():
-        raise AssertionError(f"{tag}: warm rows differ from cold rows")
-    if warm["retries"] != 0:
-        raise AssertionError(f"{tag}: warm submit retried {warm['retries']} times")
     rounds = set(cold["res"].result.round_us)
     log(f"[{tag}] ok: {want} triangles; cold {cold['wall_s']:.3f} s, warm "
         f"{warm['wall_s']:.3f} s; rounds {sorted(rounds)}")
@@ -1870,6 +1988,298 @@ def phase_simulator(verified) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The general (arbitrary-arity) route: SSB star join, forced-general
+# triangle, bench_acyclic.py's battery
+# ---------------------------------------------------------------------------
+
+#: Star Schema Benchmark, scale factor 1 (O'Neil, O'Neil, Chen, Revilak,
+#: TPCTC 2009): lineorder rows (the spec's SF x 6,000,000; 6,001,215 is the
+#: TPC-H SF1 lineitem count lineorder derives from), and the customer /
+#: supplier / part rows with the domains of c_nation, s_nation and p_brand1
+SSB_SF1 = dict(fact=6_001_215, customers=30_000, suppliers=2_000, parts=200_000,
+               nations=25, brands=1_000)
+SSB_SEED = 18
+#: SSB Q4.1's dimension predicates (c_region = 'AMERICA', s_region =
+#: 'AMERICA', p_mfgr in ('MFGR#1', 'MFGR#2')) on this generator's codes:
+#: region = nation // 5 (25 nations in 5 regions; AMERICA is region 1),
+#: manufacturer = brand // 200 (1,000 brands = 5 manufacturers x 5
+#: categories x 40 brands)
+SSB_Q41 = dict(region=1, mfgrs=(0, 1))
+
+
+def ssb_tables(fact_rows: int) -> tuple:
+    """SSB SF1's key columns, uniform and independent at SF1's cardinalities.
+    No generator's own draws are reproduced (in TPC-H's, which SSB's dbgen
+    derives from, orders skip every third customer and the supplier follows
+    the part through partsupp).  → (fact (n, 3) lo_custkey, lo_suppkey,
+    lo_partkey; c_nation, s_nation, p_brand1 indexed by key - 1)."""
+    sf = SSB_SF1
+    rng = np.random.default_rng(SSB_SEED)
+    fact = np.stack([rng.integers(1, sf["customers"] + 1, fact_rows),
+                     rng.integers(1, sf["suppliers"] + 1, fact_rows),
+                     rng.integers(1, sf["parts"] + 1, fact_rows)], axis=1)
+    c_nation = rng.integers(0, sf["nations"], sf["customers"])
+    s_nation = rng.integers(0, sf["nations"], sf["suppliers"])
+    p_brand = rng.integers(0, sf["brands"], sf["parts"])
+    return fact, c_nation, s_nation, p_brand
+
+
+def ssb_star_query(tables: tuple, q41: bool = False):
+    """SSB as the ``star3`` family: F(A,B,C) = lineorder's (lo_custkey,
+    lo_suppkey, lo_partkey); (A,A1) = customer (c_custkey, c_nation), (B,B1)
+    = supplier (s_suppkey, s_nation), (C,C1) = part (p_partkey, p_brand1).
+    With ``q41`` the dimensions keep only the rows Q4.1's predicates select,
+    so both Yannakakis sweeps drop rows.  → (query, oracle rows over (A, A1,
+    B, B1, C, C1) sorted, the oracle's row count, distinct fact rows)."""
+    from repro_torch.core.query import general_pattern_schemes, query_from_arrays
+
+    fact, *attrs = tables
+    c_nation, s_nation, p_brand = attrs
+    keep = [np.ones(len(v), dtype=bool) for v in attrs]
+    if q41:
+        keep = [c_nation // 5 == SSB_Q41["region"], s_nation // 5 == SSB_Q41["region"],
+                np.isin(p_brand // 200, SSB_Q41["mfgrs"])]
+    dims = [np.stack([np.flatnonzero(k) + 1, v[k]], axis=1) for k, v in zip(keep, attrs)]
+    schemes = general_pattern_schemes("star3")
+    if schemes != [("A", "B", "C"), ("A", "A1"), ("B", "B1"), ("C", "C1")]:
+        raise AssertionError(f"star3 schemes changed: {schemes}")
+    q = query_from_arrays([(s, d, None) for s, d in zip(schemes, [fact] + dims)])
+    f = q.relations[0].data      # distinct fact rows (Relation.make)
+    f_kept = f[keep[0][f[:, 0] - 1] & keep[1][f[:, 1] - 1] & keep[2][f[:, 2] - 1]]
+    oracle = np.stack([f_kept[:, 0], c_nation[f_kept[:, 0] - 1], f_kept[:, 1],
+                       s_nation[f_kept[:, 1] - 1], f_kept[:, 2], p_brand[f_kept[:, 2] - 1]],
+                      axis=1)
+    return q, sorted_rows(oracle), f_kept.shape[0], f.shape[0]
+
+
+def sorted_rows(rows: np.ndarray) -> np.ndarray:
+    """Rows in lexicographic order (an order-free comparison of multisets)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    return rows[np.lexsort(rows.T[::-1])] if rows.shape[0] else rows
+
+
+def acyclic_cases():
+    """The four cases of benchmarks/bench_acyclic.py:48-54 (same seeds, the
+    port's generator): (name, query, lambda), run at p=8."""
+    from repro_torch.core.query import general_query
+
+    return [("star3", general_query("star3", n=240, dom_size=20, skew=0.8, seed=11), 8),
+            ("snowflake", general_query("snowflake", n=200, dom_size=18, skew=0.8, seed=12), 8),
+            ("path4", general_query("path4", n=200, dom_size=16, skew=0.5, seed=13), 8),
+            ("triangle-general", general_query("triangle", n=260, dom_size=24, skew=1.2,
+                                               seed=14), 8)]
+
+
+def phase_general(torch, main3, capture: InputCapture, device="cuda",
+                  fact_rows=SSB_SF1["fact"]) -> dict:
+    """The general (arbitrary-arity) route through ``JoinSession.submit``:
+    (a) ``ssb-star-sf1``: SSB SF1's lineorder ⋈ customer ⋈ supplier ⋈ part
+    as ``star3`` (Yannakakis sweeps, share route, cell join), p=64, default
+    λ, ``verify=True``: the count equals the distinct fact rows, the rows
+    equal the numpy oracle after sorting, warm rows byte-identical to cold,
+    warm retries 0 on a plan-cache hit, all three join kernels launched
+    (halving the fact rows while the card's memory runs out), then one
+    untimed submit for each op's peak memory and two more warm submits
+    under cProfile and torch.profiler;
+    (b) ``ssb-q41``: the same tables with the dimensions cut to SSB Q4.1's
+    predicates, so both sweeps drop fact rows: rows against the numpy
+    oracle, then one more submit in which every call of the three join
+    kernels is held against its plain version (and must meet probe keys
+    that match nothing);
+    (c) ``triangle-2M-general``: phase 3's oriented table with
+    ``force_general=True`` (the generalized HyperCube), p=64, default λ:
+    as a sorted set equal to phase 3's binary-route rows;
+    (d) ``acyclic-bench``: bench_acyclic.py's four cases at p=8 on the card,
+    rows byte-identical to ``JoinSession(p=8, device="cpu")``, equal as
+    sorted sets to ``backend="simulator"``, count equal to
+    ``reference_join``, ``check_load`` within its bound.  Launches are
+    counted over the card's submits alone; ``capture`` keeps the largest
+    kernel inputs of the timed submits of (a)-(c) for phase 6."""
+    from repro_torch.core.query import query_from_arrays, reference_join
+    from repro_torch.mpc import JoinSession, QueryFailedError
+    from repro_torch.mpc.verify import check_load
+
+    t_phase = time.perf_counter()
+    out = {}
+    # host-side comparisons first, so the launch counts are the card's alone
+    bench = []
+    for name, q, lam in acyclic_cases():
+        t0 = time.perf_counter()
+        oracle = reference_join(q)
+        cpu = JoinSession(p=8, device="cpu").submit(q, lam=lam)
+        sim_session = JoinSession(p=8, backend="simulator")
+        sim = sim_session.submit(q, lam=lam)
+        # the session caches its plans unbound from their data
+        fractions = check_load(sim_session._plans[sim.plan_key].rebind(q), sim.result)
+        if not cpu.count == sim.count == len(oracle):
+            raise AssertionError(f"general {name}: counts cpu {cpu.count}, simulator "
+                                 f"{sim.count}, reference_join {len(oracle)}")
+        if sorted_rows(sim.rows).tobytes() != sorted_rows(oracle.data).tobytes():
+            raise AssertionError(f"general {name}: simulator rows differ from reference_join")
+        log(f"[general] {name} host side: {len(oracle)} rows; CPU session and simulator "
+            f"agree with reference_join; check_load passes (largest round share "
+            f"{max(fractions.values()):.4f}, rounds {sorted(fractions)}); load "
+            f"{sim.result.load} words, load_ratio {sim.result.load_ratio:.3f}; "
+            f"{time.perf_counter() - t0:.2f} s")
+        bench.append((name, q, lam, cpu, sim))
+    torch.cuda.synchronize()
+
+    def check_star(tag, cold, warm, oracle, want):
+        res = cold["res"]
+        if res.count != want or res.result.per_h_counts != {("*",): want}:
+            raise AssertionError(f"general {tag}: count {res.count} "
+                                 f"({res.result.per_h_counts}) != the oracle's {want}")
+        if sorted_rows(res.rows).tobytes() != oracle.tobytes():
+            raise AssertionError(f"general {tag}: rows differ from the numpy oracle")
+        if not (res.verified and cold["verify_us"] > 0):
+            raise AssertionError(f"general {tag}: the cold submit was not verified")
+        for name in JOIN_KERNELS:
+            if cold["launches"][name] <= 0 or warm["launches"][name] <= 0:
+                raise AssertionError(f"general {tag}: {name} did not launch")
+
+    reset_counts()
+    session = JoinSession(p=64, device=device, verify=True)
+    fact = fact_rows
+    while True:
+        t0 = time.perf_counter()
+        tables = ssb_tables(fact)
+        q, oracle, want, distinct = ssb_star_query(tables)
+        setup_s = time.perf_counter() - t0
+        try:
+            with capture:
+                cold, warm = cold_warm(torch, session, q, None,
+                                       f"general/ssb-star-sf1 fact={fact}")
+        except QueryFailedError as e:
+            if not isinstance(e.cause, torch.cuda.OutOfMemoryError):
+                raise
+            log(f"[general] ssb-star-sf1 with {fact} fact rows ran out of device memory: "
+                "halving the fact rows")
+            torch.cuda.empty_cache()
+            fact //= 2
+            continue
+        break
+    if want != distinct:
+        raise AssertionError(f"general ssb-star-sf1: the oracle drops fact rows ({want} of "
+                             f"{distinct}): a dimension misses a key")
+    check_star("ssb-star-sf1", cold, warm, oracle, want)
+    peaks = op_peaks(torch, session, q, None, "general/ssb-star-sf1")
+    log(f"[general] ssb-star-sf1 ok: {fact} fact draws, {distinct} distinct = count = the "
+        f"numpy oracle's rows; host set-up {setup_s:.1f} s; cold {cold['wall_s']:.3f} s, "
+        f"warm {warm['wall_s']:.3f} s; peak device memory "
+        f"{max(cold['peak_device_bytes'], warm['peak_device_bytes']) / 2**30:.2f} GiB "
+        f"({warm['base_device_bytes'] / 2**30:.2f} GiB allocated before the warm submit)")
+    out["ssb-star-sf1"] = {"fact": fact, "distinct": distinct, "cold": cold, "warm": warm,
+                           "peaks_by_op": peaks}
+    # where a warm general submit's time goes: host functions and the card's
+    # busy share
+    phase_profile(torch, session, q, None)
+    del q, oracle, cold, warm
+    torch.cuda.empty_cache()
+
+    q, oracle, want, distinct = ssb_star_query(tables, q41=True)
+    with capture:
+        cold, warm = cold_warm(torch, session, q, None, "general/ssb-q41")
+    if not 0 < want < distinct:
+        raise AssertionError(f"general ssb-q41: the oracle keeps {want} of {distinct} "
+                             f"fact rows: the sweeps would drop nothing")
+    check_star("ssb-q41", cold, warm, oracle, want)
+    with InputCapture(check=True) as checker:
+        checked = session.submit(q)
+    torch.cuda.synchronize()
+    if not same_rows(checked, cold["res"]):
+        raise AssertionError("general ssb-q41: the checked submit's rows differ from cold")
+    for name in JOIN_KERNELS:
+        if checker.checked.get(name, 0) <= 0:
+            raise AssertionError(f"general ssb-q41: the checked submit never called {name}")
+    if checker.unmatched <= 0:
+        raise AssertionError("general ssb-q41: no probe key went unmatched")
+    log(f"[general] ssb-q41 ok: Q4.1's dimensions ({sum(len(r) for r in q.relations[1:])} "
+        f"rows) keep {want} of {distinct} fact rows = count = the numpy oracle's rows; "
+        f"cold {cold['wall_s']:.3f} s, warm {warm['wall_s']:.3f} s; one more submit held "
+        f"every kernel call against its plain version, bit for bit: calls "
+        f"{json.dumps(checker.checked)}, {checker.unmatched} probe keys matched nothing, "
+        f"largest inputs {json.dumps(checker.largest)}")
+    out["ssb-q41"] = {"kept": want, "distinct": distinct, "cold": cold, "warm": warm,
+                      "checked": checker.checked, "unmatched": checker.unmatched}
+    del q, oracle, cold, warm, checked, tables
+    torch.cuda.empty_cache()
+
+    q = query_from_arrays([(("A", "B"), main3["oriented"], "E"),
+                           (("B", "C"), main3["oriented"], "E"),
+                           (("A", "C"), main3["oriented"], "E")], force_general=True)
+    with capture:
+        cold, warm = cold_warm(torch, session, q, None, "general/triangle-2M-general")
+    plan = session._plans[cold["res"].plan_key].general
+    binary = main3["cold"]["res"].rows
+    if cold["count"] != main3["oracle"] or plan.kind != "hypercube":
+        raise AssertionError(f"general triangle-2M-general: count {cold['count']} != "
+                             f"{main3['oracle']} or plan {plan.kind}")
+    if sorted_rows(cold["res"].rows).tobytes() != sorted_rows(binary).tobytes():
+        raise AssertionError("general triangle-2M-general: rows differ from phase 3's "
+                             "binary-route rows as a sorted set")
+    peaks = op_peaks(torch, session, q, None, "general/triangle-2M-general")
+    log(f"[general] triangle-2M-general ok: {cold['count']} rows = phase 3's binary-route "
+        f"rows as a sorted set; shares {dict(plan.shares)}; cold {cold['wall_s']:.3f} s, "
+        f"warm {warm['wall_s']:.3f} s; peak device memory "
+        f"{max(cold['peak_device_bytes'], warm['peak_device_bytes']) / 2**30:.2f} GiB "
+        f"({warm['base_device_bytes'] / 2**30:.2f} GiB allocated before the warm submit)")
+    out["triangle-2M-general"] = {"cold": cold, "warm": warm, "peaks_by_op": peaks}
+    del q, cold, warm, binary
+    torch.cuda.empty_cache()
+
+    card = JoinSession(p=8, device=device)
+    out["acyclic-bench"] = {}
+    for name, q, lam, cpu, sim in bench:
+        cold, warm = cold_warm(torch, card, q, lam, f"general/acyclic-bench {name}")
+        if not same_rows(cold["res"], cpu):
+            raise AssertionError(f"general {name}: card rows differ from the CPU session's")
+        if sorted_rows(cold["res"].rows).tobytes() != sorted_rows(sim.rows).tobytes():
+            raise AssertionError(f"general {name}: card rows differ from the simulator's")
+        log(f"[general] acyclic-bench {name} (p=8, lambda={lam}) ok: {cold['count']} rows "
+            f"byte-identical to the CPU session, equal to the simulator's as sorted sets; "
+            f"cold {cold['wall_s']:.3f} s, warm {warm['wall_s']:.3f} s")
+        out["acyclic-bench"][name] = {"cold": cold, "warm": warm}
+    out["launches"] = check_path_launches("general")
+    del session, card
+    torch.cuda.empty_cache()
+    log(f"[general] ok in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_timing_general(torch, capture: InputCapture) -> None:
+    """Phase 6, continued: each join kernel held against its plain version
+    on the largest inputs the general phase's timed submits gave it, bit for
+    bit, and timed beside it (log lines, not rows of the ``kernels`` line:
+    those stay at the inputs of phases 3-5)."""
+    from repro_torch.kernels import ref
+
+    hp, mj = kernel_modules()
+    kernels = {"hash_partition_pack": hp.hash_partition_pack_cuda,
+               "merge_join_counts": mj.merge_join_counts_cuda,
+               "merge_join_pairs": mj.merge_join_pairs_cuda}
+    for name in JOIN_KERNELS:
+        if name not in capture.best:
+            raise AssertionError(f"{name}: the general path never called it")
+        _, args = capture.best[name]
+        kern = lambda f=kernels[name], a=args: f(*a)
+        plain = lambda f=getattr(ref, f"{name}_ref"), a=args: f(*a)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        if err != 0 or any(g.shape != w.shape for g, w in zip(got, want)):
+            raise AssertionError(f"{name}: kernel differs from its plain version at the "
+                                 f"general path's largest inputs")
+        del got, want
+        shape = [tuple(a.shape) if hasattr(a, "shape") else a for a in args]
+        med, spread = time_rounds(torch, kern, plain, None)
+        log(f"[timing] {name} at the general path's largest inputs {shape}: kernel "
+            f"{med['kernel']:.4f} ms, plain {med['plain']:.4f} ms, max_abs_err 0; medians "
+            f"of 5 rounds, range ms: {spread}")
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1932,10 +2342,14 @@ def main(argv=None) -> int:
     timed("phase service", phase_service, torch)
     verified = timed("phase verify", phase_verify, torch, session, heavy)
     timed("phase simulator", phase_simulator, verified)
+    general_capture = InputCapture()
+    timed("phase general", phase_general, torch, main3, general_capture)
 
     del session, main3, heavy, verified
     torch.cuda.empty_cache()
     rows = timed("phase 6", phase_timing, torch, capture, launches)
+    timed("phase 6 (general inputs)", phase_timing_general, torch, general_capture)
+    del general_capture
     rows += timed("phase 7", phase_library, torch, dev)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(f"{env['smi']}")

@@ -18,9 +18,9 @@ stitched into one tree with empty-label edges (a semijoin over ∅ shared
 attributes degenerates to "keep the parent iff the child is non-empty", which
 is exactly the cartesian-product semantics the executor implements).
 
-In the reference package the join tree drives the general compiler
-(Yannakakis semijoin sweeps + tree-ordered bottom-up join) and the verifier's
-``join-tree`` rule; this package has neither yet (ROADMAP Queue 1 item 7).
+The join tree drives the general compiler in ``repro_torch.mpc.program``
+(Yannakakis semijoin sweeps + tree-ordered bottom-up join) and is re-checked
+structurally by the ``join-tree`` rule in ``repro_torch.mpc.verify``.
 """
 
 from __future__ import annotations

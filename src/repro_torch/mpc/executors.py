@@ -8,7 +8,7 @@ One verified plan, two backends:
   hash keys, per-machine RNG streams and loop order, so its rows,
   ``per_h_counts`` and per-round loads equal the reference's.
 
-* :class:`DataplaneExecutor` lowers every op of a compiled binary
+* :class:`DataplaneExecutor` lowers every op of a compiled
 :class:`~repro_torch.mpc.program.RoundProgram` onto the torch data plane —
 one lowering rule per :class:`~repro_torch.mpc.program.RoundOp`, dispatched
 over ``program.ops``: capacity-padded hash exchanges and grid routes among p
@@ -16,7 +16,9 @@ machines held as a leading tensor axis on one device, plus the
 ``merge_join_counts`` / ``merge_join_pairs`` / ``hash_partition_pack``
 kernels.  Stages with isolated attributes run the Lemma 3.1 cartesian grid
 composed with the Lemma 3.3 HyperCube (the Lemma 3.2 cell mapping lives in
-:class:`~repro_torch.mpc.program.StageGeometry`).
+:class:`~repro_torch.mpc.program.StageGeometry`).  General (arbitrary-arity)
+programs run their Yannakakis sweeps, share route and cell join on the same
+primitives.
 """
 
 from __future__ import annotations
@@ -36,9 +38,10 @@ from ..core.query import Attr, JoinQuery, Relation, reference_join
 from ..core.taxonomy import heavy_masks, residual_relations
 from ..device import resolve_device
 from .faults import DeadlineExceededError, RetryExhaustedError
-from .hypercube import route_hypercube
+from .hypercube import HyperCubeGrid, route_hypercube
 from .program import (
     BroadcastSizes,
+    CellJoin,
     GridRoute,
     HashPartition,
     LocalJoin,
@@ -49,7 +52,9 @@ from .program import (
     RunConfig,
     Scatter,
     SemiJoin,
+    ShareRoute,
     StageGeometry,
+    TreeSemiJoin,
     stage_geometry,
 )
 from .simulator import MPCSimulator, scatter_input
@@ -197,6 +202,12 @@ class SimulatorExecutor:
         self._geo: Dict[int, StageGeometry] = {}
         self._outputs: Dict[int, List[np.ndarray]] = defaultdict(list)
         self._counts: Dict[Tuple[Attr, ...], int] = defaultdict(int)
+        # general route: per-relation working tag (TreeSemiJoin sweeps move a
+        # relation's surviving rows under fresh tags as they filter it)
+        self._gtags: Dict[int, Tuple] = {
+            i: ("in", rel.edge) for i, rel in enumerate(program.query.relations)
+        }
+        self._ggrid: Optional[HyperCubeGrid] = None
 
         # H = attset(Q) emits: host-side placement, zero communication.
         for mid, row in program.emit:
@@ -241,10 +252,14 @@ class SimulatorExecutor:
             self._op_grid_route()
         elif isinstance(op, LocalJoin):
             self._op_local_join()
+        elif isinstance(op, TreeSemiJoin):
+            self._op_tree_semijoin(op)
+        elif isinstance(op, ShareRoute):
+            self._op_share_route()
+        elif isinstance(op, CellJoin):
+            self._op_cell_join()
         else:
-            raise NotImplementedError(
-                f"op {op!r} has no simulator rule: the general route's TreeSemiJoin, "
-                "ShareRoute and CellJoin arrive with its compiler (ROADMAP Queue 1 item 7)")
+            raise NotImplementedError(f"unknown op {op!r}")
 
     # -- step 1: route residual tuples ---------------------------------------
 
@@ -630,6 +645,122 @@ class SimulatorExecutor:
                     self._outputs[mid].append(rows[:, perm])
             self._counts[st.hkey] += h_count
 
+    # -- general route: Yannakakis sweeps + generalized HyperCube -------------
+
+    def _op_tree_semijoin(self, op: TreeSemiJoin) -> None:
+        """One semijoin sweep along the join tree (general acyclic route).
+
+        Each tree edge is its own communication round (the next edge's filter
+        reads this edge's output); same-named rounds merge in the parallel
+        load accounting, matching the paper's process-all-in-parallel model.
+        Both sides of an edge are hash-partitioned on the first shared
+        attribute (same hash key ⇒ co-located), then the filtered side keeps
+        exactly the rows whose full shared-attribute tuple appears in the
+        filtering side.  An empty shared label degenerates to a non-emptiness
+        filter: both sides key on the constant 0, so the filtered relation
+        survives iff the filtering one has any row (the cartesian stitch
+        between disconnected components)."""
+        sim, program = self.sim, self._program
+        query, gen = program.query, program.general
+        edges = gen.tree_edges
+        if op.phase == "down":
+            edges = tuple(reversed(edges))
+        for ei, (child, parent, shared) in enumerate(edges):
+            if op.phase == "up":
+                tgt, src = parent, child
+            else:
+                tgt, src = child, parent
+            tgt_rel, src_rel = query.relations[tgt], query.relations[src]
+            hkey = ("gsj", op.phase, ei)
+            tag_f = ("gsjf", op.phase, ei)      # filtering-side key tuples
+            tag_e = ("gsje", op.phase, ei)      # filtered-side rows
+            new_tag = ("gsj", op.phase, ei, tgt)
+            sim.begin_round(op.round)
+            for mid in range(sim.p):
+                srows = sim.local(mid, self._gtags[src], arity=src_rel.arity)
+                if srows.shape[0]:
+                    if shared:
+                        scols = [src_rel.scheme.index(a) for a in shared]
+                        proj = np.unique(srows[:, scols], axis=0)
+                    else:
+                        proj = np.zeros((1, 1), dtype=np.int64)
+                    hv = sim.hashes.hash(hkey, proj[:, 0], sim.p)
+                    _send_grouped(sim, hv, tag_f, proj)
+                trows = sim.local(mid, self._gtags[tgt], arity=tgt_rel.arity)
+                if trows.shape[0]:
+                    if shared:
+                        tcols = [tgt_rel.scheme.index(a) for a in shared]
+                        keyvals = trows[:, tcols[0]]
+                    else:
+                        keyvals = np.zeros(trows.shape[0], dtype=np.int64)
+                    hv = sim.hashes.hash(hkey, keyvals, sim.p)
+                    _send_grouped(sim, hv, tag_e, trows)
+            sim.end_round()
+            for mid in sim.machines_with(tag_e):
+                trows = sim.local(mid, tag_e, arity=tgt_rel.arity)
+                fl = sim.local(mid, tag_f, arity=max(1, len(shared)))
+                if shared:
+                    tcols = [tgt_rel.scheme.index(a) for a in shared]
+                    fset = set(map(tuple, fl.tolist()))
+                    keep = np.fromiter(
+                        (tuple(r) in fset for r in trows[:, tcols].tolist()),
+                        dtype=bool,
+                        count=trows.shape[0],
+                    )
+                else:
+                    keep = np.full(trows.shape[0], fl.shape[0] > 0)
+                sim.stores[mid][new_tag] = [trows[keep]]
+            self._gtags[tgt] = new_tag
+
+    def _op_share_route(self) -> None:
+        """Generalized HyperCube route: every attribute is a grid dimension
+        (shares from the compiled plan, Π ≤ p), every relation's tuples go to
+        all cells agreeing with their hashed coordinates — one round."""
+        sim, program = self.sim, self._program
+        query, gen = program.query, program.general
+        grid = HyperCubeGrid(program.out_cols, gen.shares_dict)
+        self._ggrid = grid
+        sim.begin_round("hc-route")
+        for mid in range(sim.p):
+            frags = []
+            for i, rel in enumerate(query.relations):
+                local = sim.local(mid, self._gtags[i], arity=rel.arity)
+                frags.append((rel.scheme, i, local))
+            route_hypercube(
+                sim,
+                grid,
+                frags,
+                salt="ghc",
+                deliver=lambda cell, i, rows: sim.send(cell, ("gcell", i), rows),
+            )
+        sim.end_round()
+
+    def _op_cell_join(self) -> None:
+        """Output round of the general route: each cell joins its co-located
+        fragments locally (every attribute is a grid dimension, so each result
+        tuple materializes at exactly one cell — no communication)."""
+        sim, program = self.sim, self._program
+        query, gen = program.query, program.general
+        grid = self._ggrid
+        total = 0
+        for cell in range(grid.size):
+            frags = []
+            empty = False
+            for i in gen.join_order:
+                rel = query.relations[i]
+                rows = sim.local(cell, ("gcell", i), arity=rel.arity)
+                if rows.shape[0] == 0:
+                    empty = True
+                    break
+                frags.append(Relation.make(rel.scheme, rows))
+            if empty:
+                continue
+            local_join = reference_join(JoinQuery.make(frags))
+            total += len(local_join)
+            if self._materialize and len(local_join):
+                self._outputs[cell].append(local_join.data)
+        self._counts[("*",)] += total
+
 
 # ---------------------------------------------------------------------------
 # Torch dataplane backend
@@ -774,6 +905,10 @@ class _StageState:
     geo: Optional[StageGeometry] = None
     routed: Optional[List] = None    # [(scheme incl. cell col, blocks, counts, n)]
     parts: Optional[List] = None     # LocalJoin chain worklist
+    #: general route: per-relation staged host blocks, indexed by relation
+    #: position — [(scheme, blocks, counts, n)], updated in place by the
+    #: TreeSemiJoin sweeps.
+    gparts: Optional[List] = None
     n_out: int = 0
     rows: Optional[np.ndarray] = None
     empty: bool = False
@@ -802,8 +937,8 @@ class _WorkItem:
 
 
 class DataplaneExecutor:
-    """Runs compiled binary :class:`RoundProgram`\\ s among ``p`` machines
-    held on one device.
+    """Runs compiled :class:`RoundProgram`\\ s among ``p`` machines held on
+    one device.
 
       Scatter          host no-op (inputs are host-resident)
       RouteResidual    host carves Q'(η) per stage and blockifies the padded
@@ -819,6 +954,14 @@ class DataplaneExecutor:
                        every copy tagged with its Lemma 3.2 virtual cell
       LocalJoin        a chain of communication-free colocated joins keyed on
                        the cell column
+      TreeSemiJoin     general route: per join-tree edge, the filtering side's
+                       packed keys `batched_sharded_intersect`-ed, then the
+                       filtered side `batched_sharded_semijoin`-ed under the
+                       same salt
+      ShareRoute       general route: every relation `batched_sharded_grid_route`-d
+                       over the LP share grid (every attribute a dimension)
+      CellJoin         general route: the colocated-join chain on the cell
+                       column in the compiler's join order
 
     Every call is *stage-batched*: work items with the same static signature
     and capacities form a geometry bucket whose inputs are stacked along a
@@ -846,6 +989,9 @@ class DataplaneExecutor:
         BroadcastSizes: "_lower_broadcast_sizes",
         GridRoute: "_lower_grid_route",
         LocalJoin: "_lower_local_join",
+        TreeSemiJoin: "_lower_tree_semijoin",
+        ShareRoute: "_lower_share_route",
+        CellJoin: "_lower_cell_join",
     }
 
     #: executor-lifetime learned-caps entries kept before LRU eviction
@@ -1804,5 +1950,385 @@ class DataplaneExecutor:
                     axis=1,
                 )
                 out_scheme = out_scheme + [a]
+            perm = [out_scheme.index(a) for a in state.program.out_cols]
+            state.rows = rows[:, perm]
+
+    # -- general-route lowering rules (arbitrary-arity programs) --------------
+
+    def _ensure_general_staged(self, states) -> None:
+        """Stage every general program's base relations as host blocks.
+
+        The general route has no residual carving: the whole input is the
+        working set, so staging happens lazily at the first general op that
+        needs device data (TreeSemiJoin for acyclic programs, ShareRoute for
+        cyclic ones).  An empty base relation empties the join outright —
+        the state keeps its per-H count entry at 0 (``skip_count`` stays
+        False), matching the simulator."""
+        from ..dataplane.exchange import blockify
+
+        for state in states:
+            if state.gparts is not None or state.empty:
+                continue
+            query = state.program.query
+            if any(len(rel) == 0 for rel in query.relations):
+                state.empty = True
+                continue
+            state.gparts = []
+            for rel in query.relations:
+                blocks, cnts = blockify(rel.data, self.p, self._block_cap(len(rel)))
+                state.gparts.append((list(rel.scheme), blocks, cnts, len(rel)))
+
+    @staticmethod
+    def _general_key_cols(tgt_scheme, tgt_rows, src_scheme, src_rows, shared):
+        """One int64 join-key column per side over the ``shared`` attributes.
+
+        Mixed-radix packs (``key = key·radix_j + v_j``) when every value is
+        non-negative and the radix product fits int32; otherwise both sides'
+        key tuples are densely ranked together (the key only needs to *agree*
+        across sides, not be order-preserving).  An empty ``shared`` — the
+        cartesian stitch edge between disconnected components — keys every
+        row 0, degenerating the semijoin to a non-emptiness filter."""
+        if not shared:
+            return (
+                np.zeros(len(tgt_rows), np.int64),
+                np.zeros(len(src_rows), np.int64),
+            )
+        t = tgt_rows[:, [tgt_scheme.index(a) for a in shared]]
+        s = src_rows[:, [src_scheme.index(a) for a in shared]]
+        both = np.concatenate([t, s], axis=0)
+        if both.size and both.min() >= 0:
+            radices = both.max(axis=0).astype(np.int64) + 1
+            if np.prod(radices) <= np.iinfo(np.int32).max:
+                tk = np.zeros(len(t), np.int64)
+                sk = np.zeros(len(s), np.int64)
+                for j in range(len(shared)):
+                    tk = tk * radices[j] + t[:, j]
+                    sk = sk * radices[j] + s[:, j]
+                return tk, sk
+        _, inv = np.unique(both, axis=0, return_inverse=True)
+        inv = inv.astype(np.int64)
+        return inv[: len(t)], inv[len(t):]
+
+    def _lower_tree_semijoin(self, program, states, op) -> None:
+        """One Yannakakis sweep over the GYO join tree.
+
+        For each tree edge — removal order for the up sweep, reversed for the
+        down sweep — the filtering side's distinct key values are hash-
+        partitioned and deduped on-device (`batched_sharded_intersect`, one
+        piece), then the filtered side's rows, with the packed key appended
+        as a trailing column, are exchanged under the same salt and semijoined
+        (`batched_sharded_semijoin` on that column).  Edges run sequentially
+        (edge i+1 filters against edge i's output) but every live stage
+        batches per edge.  Retry groups carry the query index: every general
+        stage shares the query-unqualified skey, and one query's re-salt must
+        not reorder another's rows."""
+        from ..dataplane.exchange import blockify, salt_offset, unblockify
+        from ..dataplane.join import (
+            batched_sharded_intersect,
+            batched_sharded_semijoin,
+        )
+
+        self._ensure_general_staged(states)
+        n_edges = max(
+            (len(state.program.general.tree_edges)
+             for state in states if not state.empty),
+            default=0,
+        )
+        for ei in range(n_edges):
+            prep: List[_WorkItem] = []
+            for state in states:
+                if state.empty:
+                    continue
+                edges = state.program.general.tree_edges
+                if ei >= len(edges):
+                    continue
+                child, par, shared = (
+                    edges[ei] if op.phase == "up" else edges[len(edges) - 1 - ei]
+                )
+                tgt, src = (par, child) if op.phase == "up" else (child, par)
+                tgt_scheme, tgt_blocks, tgt_cnts, n_tgt = state.gparts[tgt]
+                src_scheme, src_blocks, src_cnts, _ = state.gparts[src]
+                tgt_rows = unblockify(tgt_blocks, tgt_cnts)
+                src_rows = unblockify(src_blocks, src_cnts)
+                tk, sk = self._general_key_cols(
+                    tgt_scheme, tgt_rows, src_scheme, src_rows, shared
+                )
+                piece = np.unique(sk)
+                pv, pc = blockify(piece, self.p, self._block_cap(piece.size))
+                keyed = np.concatenate([tgt_rows, tk[:, None]], axis=1)
+                kb, kc = blockify(keyed, self.p, self._block_cap(len(keyed)))
+                prep.append(_WorkItem(
+                    state=state,
+                    key=("gsj-intersect", tuple(pv[:, :, 0].shape)),
+                    caps={"slot": self._slot_cap(piece.size),
+                          "out": self._cap(piece.size)},
+                    payload={"pv": pv[:, :, 0], "pc": pc, "rows": kb,
+                             "cnts": kc, "n": n_tgt, "tgt": tgt,
+                             "col": len(tgt_scheme)},
+                    group=("gsj-intersect", state.qi, ei),
+                ))
+
+            if not prep:
+                continue
+
+            def i_dispatch(bucket):
+                s, s_pad = len(bucket), self._pow2_stages(len(bucket))
+                pieces = [(
+                    self._stack([it.payload["pv"] for it in bucket], s_pad),
+                    self._stack([it.payload["pc"] for it in bucket], s_pad),
+                )]
+                salts = [
+                    _salt(it.state.skey, "gsj", op.phase, ei, attempt=it.attempt)
+                    for it in bucket
+                ]
+                offs = np.asarray(
+                    [salt_offset(v) for v in salts] + [0] * (s_pad - s), np.int32
+                )
+                caps = bucket[0].caps
+                fn, args = batched_sharded_intersect(
+                    pieces, offs, cap_slot=caps["slot"], cap_out=caps["out"],
+                    device=self.device, invoke=False,
+                )
+
+                def post(outs, salts=salts, s=s):
+                    vals, cnts, ovf = outs
+
+                    def finalize(vals=vals, cnts=cnts):
+                        vals, cnts = to_host(vals[:s]), to_host(cnts[:s])
+                        return [(vals[i], cnts[i], salts[i]) for i in range(s)]
+
+                    return finalize, ovf[:s]
+
+                return fn, args, post
+
+            sj_items: List[_WorkItem] = []
+            for it in self._run_buckets(op.round, prep, i_dispatch):
+                vals, cnts, salt = it.result
+                pl = dict(it.payload)
+                pl["piece"], pl["salt"] = (vals, cnts), salt
+                sj_items.append(_WorkItem(
+                    state=it.state,
+                    key=("gsj-filter", pl["col"], tuple(pl["rows"].shape),
+                         tuple(vals.shape)),
+                    caps={"slot": self._slot_cap(pl["n"]),
+                          "out": self._cap(pl["n"])},
+                    payload=pl,
+                    group=("gsj-filter", it.state.qi, ei),
+                ))
+
+            def f_dispatch(bucket):
+                s, s_pad = len(bucket), self._pow2_stages(len(bucket))
+                rows = self._stack([it.payload["rows"] for it in bucket], s_pad)
+                cnts = self._stack([it.payload["cnts"] for it in bucket], s_pad)
+                pv = self._stack([it.payload["piece"][0] for it in bucket], s_pad)
+                pc = self._stack([it.payload["piece"][1] for it in bucket], s_pad)
+                col = bucket[0].payload["col"]
+                # pinned to the intersect pass's distribution salt: rows must
+                # land where the piece landed, so retries only grow caps.
+                offs = np.asarray(
+                    [salt_offset(it.payload["salt"]) for it in bucket]
+                    + [0] * (s_pad - s),
+                    np.int32,
+                )
+                caps = bucket[0].caps
+                fn, args = batched_sharded_semijoin(
+                    rows, cnts, col, offs, pv, pc, cap_slot=caps["slot"],
+                    cap_out=caps["out"], device=self.device, invoke=False,
+                )
+                return fn, args, partial(self._rows_counts_post, s=s)
+
+            for it in self._run_buckets(op.round, sj_items, f_dispatch):
+                blocks, cnts = it.result
+                n2 = int(cnts.sum())
+                tgt = it.payload["tgt"]
+                scheme = it.state.gparts[tgt][0]
+                # strip the appended key column
+                it.state.gparts[tgt] = (scheme, blocks[:, :, :-1], cnts, n2)
+                if n2 == 0:
+                    it.state.empty = True
+
+    def _lower_share_route(self, program, states, op) -> None:
+        """Generalized HyperCube route: every output attribute is a grid
+        dimension (shares from the fractional edge cover LP, Π ≤ p), every
+        relation's rows are replicated to the cells agreeing with their
+        hashed coordinates — share-1 attributes pin coordinate 0, attributes
+        absent from a relation fan out across that dimension.  Lowered
+        through the same ``batched_sharded_grid_route`` primitive as the
+        binary HC side, with per-attribute salts shared across relations
+        (same attribute ⇒ same hash) and one qi-scoped retry group per stage
+        so a re-salt re-routes every relation of the query together."""
+        from ..dataplane.grid import (
+            HCBatchSig,
+            _pad_table,
+            batched_sharded_grid_route,
+            batched_sharded_grid_route_count,
+            hc_batch_params,
+        )
+
+        self._ensure_general_staged(states)
+        raw = []
+        for state in states:
+            if state.empty:
+                continue
+            gen = state.program.general
+            grid = HyperCubeGrid(
+                list(state.program.out_cols), gen.shares_dict
+            )
+            if grid.size >= 1 << 31:
+                raise RuntimeError(f"stage {state.skey}: share grid exceeds int32")
+            state.routed = [None] * len(state.gparts)
+            for pos, ri in enumerate(gen.join_order):
+                scheme, blocks, cnts, n = state.gparts[ri]
+                cols, shares, strides, table = hc_batch_params(grid, scheme, 1)
+                raw.append((state, pos, {
+                    "scheme": scheme, "blocks": blocks, "cnts": cnts,
+                    "cols": cols, "shares": shares, "strides": strides,
+                    "table": table, "n": n,
+                }))
+
+        group_fanout: Dict[Tuple, int] = {}
+        for state, pos, pl in raw:
+            gk = (state.qi, pl["cols"])
+            group_fanout[gk] = max(group_fanout.get(gk, 1), len(pl["table"]))
+
+        items: List[_WorkItem] = []
+        for state, pos, pl in raw:
+            f_max = _pow2(group_fanout[(state.qi, pl["cols"])])
+            own = _pow2(len(pl["table"]))
+            fanout = f_max if own * self.fanout_merge_ratio >= f_max else own
+            n = pl["n"]
+            caps = {
+                "slot": 2 * self._slot_cap(n * len(pl["table"])),
+                "out": self._cap(n * len(pl["table"])),
+            }
+            sig = HCBatchSig(cols=pl["cols"], fanout=fanout)
+            items.append(_WorkItem(
+                state=state,
+                key=("ghc", sig, tuple(pl["blocks"].shape)),
+                caps=caps,
+                payload={"pos": pos, "sig": sig, **pl},
+                group=("ghc", state.qi),
+            ))
+
+        def make_dispatch(count: bool):
+            def dispatch(bucket):
+                s, s_pad = len(bucket), self._pow2_stages(len(bucket))
+                sig = bucket[0].payload["sig"]
+                caps = bucket[0].caps
+                pad = s_pad - s
+                rows = self._stack([it.payload["blocks"] for it in bucket], s_pad)
+                cnts = self._stack([it.payload["cnts"] for it in bucket], s_pad)
+                table = np.stack(
+                    [_pad_table(it.payload["table"], sig.fanout) for it in bucket]
+                    + [np.full((sig.fanout,), -1, np.int32)] * pad
+                )
+                nf = len(sig.cols)
+                salts = np.ones((s_pad, nf), dtype=np.uint32)
+                shares = np.ones((s_pad, nf), dtype=np.uint32)
+                strides = np.zeros((s_pad, nf), dtype=np.int32)
+                for i, it in enumerate(bucket):
+                    scheme = it.payload["scheme"]
+                    salts[i] = [
+                        _salt(it.state.skey, "ghc", scheme[c], attempt=it.attempt)
+                        for c in sig.cols
+                    ]
+                    shares[i] = it.payload["shares"]
+                    strides[i] = it.payload["strides"]
+                route = (
+                    batched_sharded_grid_route_count
+                    if count else batched_sharded_grid_route
+                )
+                kw = {} if count else {
+                    "cap_slot": caps["slot"], "cap_out": caps["out"],
+                }
+                fn, args = route(
+                    rows, cnts, sig, salts=salts, shares=shares, strides=strides,
+                    table=table, device=self.device, invoke=False, **kw,
+                )
+                if count:
+                    return fn, args, partial(self._hist_post, s=s)
+                return fn, args, partial(self._rows_counts_post, s=s)
+            return dispatch
+
+        if self.exact_caps:
+            self._apply_exact_caps(
+                op.round, items, make_dispatch(count=True),
+                caps_from_count=lambda h: {
+                    "slot": _quant(max(1, int(h.max()))),
+                    "out": _quant(max(1, int(h.sum(axis=0).max()))),
+                },
+                floor={"slot": 16, "out": 16},
+            )
+
+        for it in self._run_buckets(op.round, items, make_dispatch(count=False)):
+            rows, cnts = it.result
+            n = int(cnts.sum())
+            scheme = ["#cell"] + list(it.payload["scheme"])
+            it.state.routed[it.payload["pos"]] = (scheme, rows, cnts, n)
+
+    def _lower_cell_join(self, program, states, op) -> None:
+        """Output round of the general route: a chain of communication-free
+        colocated joins on the cell column, in the compiler's fixed join
+        order (tree pre-order for acyclic, greedy connected for cyclic) —
+        no reordering, so the chain shape is a pure function of the plan.
+        Attributes shared beyond the cell fold into the join key via
+        dup_pairs, exactly as in the binary LocalJoin chain."""
+        from ..dataplane.exchange import unblockify
+
+        for state in states:
+            if state.routed is None:
+                raise DataplaneUnsupported("CellJoin before ShareRoute")
+            state.parts = list(state.routed)
+
+        while True:
+            active = [state for state in states if len(state.parts) >= 2]
+            if not active:
+                break
+            items: List[_WorkItem] = []
+            for state in active:
+                a_scheme, a_blocks, a_cnts, n_a = state.parts[0]
+                b_scheme, b_blocks, b_cnts, n_b = state.parts[1]
+                common = [a for a in a_scheme[1:] if a in b_scheme]
+                dup_pairs = tuple(
+                    (a_scheme.index(a), b_scheme.index(a)) for a in common
+                )
+                out_scheme = a_scheme + [
+                    a for i, a in enumerate(b_scheme) if i != 0 and a not in common
+                ]
+                mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
+                items.append(_WorkItem(
+                    state=state,
+                    key=("gjoin", tuple(a_blocks.shape), tuple(b_blocks.shape),
+                         dup_pairs, mults is not None),
+                    caps={"out": self._cap(4 * (n_a + n_b))},
+                    payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts),
+                             "dup_pairs": dup_pairs, "scheme": out_scheme,
+                             "mults": mults},
+                    group=("gjoin", state.qi),
+                ))
+
+            if self.exact_caps:
+                self._apply_exact_caps(
+                    op.round, items, self._make_colocated_dispatch(count=True),
+                    caps_from_count=lambda c: {
+                        "out": _quant(max(1, int(c.max()))),
+                    },
+                    floor={"out": 16},
+                )
+
+            for it in self._run_buckets(
+                op.round, items, self._make_colocated_dispatch(count=False)
+            ):
+                blocks, cnts = it.result
+                n = int(cnts.sum())
+                it.state.parts[0:2] = [(it.payload["scheme"], blocks, cnts, n)]
+
+        for state in states:
+            scheme, blocks, cnts, n = state.parts[0]
+            state.n_out = n
+            if not self._materialize or n == 0:
+                continue
+            rows = unblockify(blocks, cnts)[:, 1:]     # drop the cell column
+            out_scheme = scheme[1:]
             perm = [out_scheme.index(a) for a in state.program.out_cols]
             state.rows = rows[:, perm]

@@ -27,11 +27,18 @@ the two-round semi-join with the beyond-paper fused variant (one data round
 saved when a light edge's X attribute is not a border attribute).
 
 Arbitrary-arity queries (any relation with arity ≠ 2, or ``force_general``)
-need the general route (join trees, generalized HyperCube shares: ROADMAP
-Queue 1 item 7): ``compile_plan`` raises ``NotImplementedError`` for them.
+compile through :func:`compile_general_plan` instead: acyclic queries get a
+Yannakakis-style program — two semijoin sweeps along a GYO join tree
+(``TreeSemiJoin``) followed by a HyperCube route + tree-ordered local join
+chain — and cyclic queries the generalized one-round HyperCube (per-attribute
+shares from the fractional edge cover LP, Beame–Koutris–Suciu) with the same
+route + chain-join tail (``ShareRoute`` + ``CellJoin``).  General programs
+carry a :class:`GeneralPlan` and a single :class:`GeneralStage`, flow through
+the same executors/caches/verifier as binary programs, and are checked by the
+``join-tree`` / ``share-exponent`` rules of :mod:`repro_torch.mpc.verify`.
 
-``compile_plan(verify=...)`` runs the static verifier
-(:mod:`repro_torch.mpc.verify`) over every program it returns.
+``compile_plan(verify=...)`` runs the static verifier over every program it
+returns.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.hypergraph import rho
+from ..core.jointree import build_join_tree
 from ..core.planner import (
     ConfigPlan,
     HPlanWithAlloc,
@@ -64,7 +72,7 @@ from ..core.taxonomy import (
     residual_size,
 )
 from .cartesian import CartesianGrid
-from .hypercube import HyperCubeGrid
+from .hypercube import HyperCubeGrid, uniform_lp_shares
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +183,52 @@ class LocalJoin(RoundOp):
         return "output"
 
 
+@dataclass(frozen=True)
+class TreeSemiJoin(RoundOp):
+    """Yannakakis semijoin sweep along the GYO join tree (general route).
+
+    ``phase`` = ``"up"`` (leaves → root, GYO removal order: each parent is
+    filtered by every child) or ``"down"`` (root → leaves, reversed order:
+    each child filtered by its already-reduced parent).  After both sweeps the
+    query is fully reduced — every surviving tuple contributes to the output
+    (Yannakakis; Hu/Yi 1903.09717 give the MPC instance-optimal form).  Each
+    tree edge is one hash-partitioned semijoin on the edge's shared attributes
+    (an empty label degenerates to a non-emptiness filter — the cartesian
+    stitch edge between components)."""
+
+    phase: str = "up"
+
+    @property
+    def round(self) -> str:
+        return {"up": "yan-up", "down": "yan-down"}[self.phase]
+
+
+@dataclass(frozen=True)
+class ShareRoute(RoundOp):
+    """Generalized HyperCube route (BKS 1604.01848): every relation's tuples
+    are replicated to the grid cells agreeing with their hashed coordinates,
+    with per-attribute shares from the fractional edge cover LP (Π shares ≤ p,
+    load m/p^{1/ρ} on skew-free data).  One communication round; each result
+    tuple is assembled at exactly one cell."""
+
+    @property
+    def round(self) -> str:
+        return "hc-route"
+
+
+@dataclass(frozen=True)
+class CellJoin(RoundOp):
+    """Output round of the general route: each cell joins its co-located
+    fragments through a chain of local joins — ordered by the join tree for
+    acyclic queries, by shared-attribute greedy order for cyclic ones — with
+    every attribute a grid dimension, so each result tuple materializes on
+    exactly one machine (no communication)."""
+
+    @property
+    def round(self) -> str:
+        return "output"
+
+
 DEFAULT_OPS: Tuple[RoundOp, ...] = (
     Scatter(),
     RouteResidual(),
@@ -185,6 +239,21 @@ DEFAULT_OPS: Tuple[RoundOp, ...] = (
     GridRoute(),
     LocalJoin(),
 )
+
+GENERAL_ACYCLIC_OPS: Tuple[RoundOp, ...] = (
+    Scatter(),
+    TreeSemiJoin(phase="up"),
+    TreeSemiJoin(phase="down"),
+    ShareRoute(),
+    CellJoin(),
+)
+
+GENERAL_CYCLIC_OPS: Tuple[RoundOp, ...] = (
+    Scatter(),
+    ShareRoute(),
+    CellJoin(),
+)
+
 
 # ---------------------------------------------------------------------------
 # Stages + program
@@ -246,6 +315,58 @@ class ProgramStage:
         )
 
 
+@dataclass(frozen=True)
+class GeneralPlan:
+    """Structure of a general (arbitrary-arity) program.
+
+    ``kind`` is ``"yannakakis"`` (acyclic: semijoin sweeps + routed join) or
+    ``"hypercube"`` (cyclic: one-round generalized shares).  ``tree_edges``
+    lists the join tree's (child, parent, shared attrs) in GYO removal order
+    (the valid up-sweep order; the down sweep is its exact reverse — the
+    ``join-tree`` verify rule re-checks both).  ``join_order`` is the relation
+    order of the CellJoin chain (a pre-order of the tree for acyclic queries,
+    so each joined relation is adjacent to the already-joined set).
+    ``shares`` are the per-attribute HyperCube shares from the fractional edge
+    cover LP, with Π shares ≤ p (the ``share-exponent`` verify rule)."""
+
+    kind: str
+    tree_root: int
+    tree_edges: Tuple[Tuple[int, int, Tuple[Attr, ...]], ...]
+    join_order: Tuple[int, ...]
+    shares: Tuple[Tuple[Attr, int], ...]
+
+    @property
+    def shares_dict(self) -> Dict[Attr, int]:
+        return dict(self.shares)
+
+
+@dataclass
+class GeneralStage:
+    """The single pseudo-stage a general program carries.
+
+    Duck-typed to the :class:`ProgramStage` surface the stage-batched executor
+    reads (``hkey``/``ekey``/``signature``; ``plan`` is None — there is no
+    binary (H, η) taxonomy behind it).  ``struct`` pins the query structure so
+    salts and retry groups derived from the stage key are deterministic."""
+
+    kind: str
+    struct: Tuple
+
+    plan = None
+
+    @property
+    def hkey(self) -> Tuple[Attr, ...]:
+        return ("*",)
+
+    @property
+    def ekey(self) -> Tuple[int, ...]:
+        return ()
+
+    @property
+    def signature(self) -> Tuple:
+        return ("general", self.kind, self.struct)
+
+
 @dataclass
 class RoundProgram:
     """A compiled Theorem 6.2 instance: stages + op sequence + emit tuples.
@@ -277,6 +398,7 @@ class RoundProgram:
     emit_counts: Dict[Tuple[Attr, ...], int]
     ops: Tuple[RoundOp, ...] = DEFAULT_OPS
     fused: bool = False
+    general: Optional[GeneralPlan] = None
 
     @property
     def out_cols(self) -> Tuple[Attr, ...]:
@@ -291,7 +413,7 @@ class RoundProgram:
         out = []
         for op in self.ops:
             name = type(op).__name__
-            if isinstance(op, SemiJoin):
+            if isinstance(op, (SemiJoin, TreeSemiJoin)):
                 name += f"[{op.phase}]"
             out.append(name)
         return out
@@ -379,6 +501,112 @@ def _verify_default() -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _general_join_order(
+    schemes: Sequence[Tuple[Attr, ...]],
+    tree_edges: Sequence[Tuple[int, int, Tuple[Attr, ...]]],
+    root: int,
+) -> Tuple[int, ...]:
+    """Relation order of the CellJoin chain.
+
+    Acyclic (tree present): pre-order of the join tree, lowest child index
+    first — every joined relation is tree-adjacent to the already-joined set,
+    so each chain step is a real join on the tree edge's shared attributes.
+    Cyclic: greedy connected order — start at relation 0, repeatedly take the
+    lowest-index remaining relation sharing an attribute with the covered set
+    (falling back to the lowest index for a disconnected component)."""
+    n = len(schemes)
+    if n == 1:
+        return (0,)
+    if tree_edges:
+        children: Dict[int, List[int]] = {}
+        for c, parent, _ in tree_edges:
+            children.setdefault(parent, []).append(c)
+        order: List[int] = []
+        stack = [root]
+        while stack:
+            node = stack.pop()
+            order.append(node)
+            stack.extend(sorted(children.get(node, []), reverse=True))
+        return tuple(order)
+    order = [0]
+    covered = set(schemes[0])
+    remaining = [i for i in range(1, n)]
+    while remaining:
+        nxt = next(
+            (i for i in remaining if covered & set(schemes[i])), remaining[0]
+        )
+        remaining.remove(nxt)
+        order.append(nxt)
+        covered |= set(schemes[nxt])
+    return tuple(order)
+
+
+def compile_general_plan(
+    query: JoinQuery,
+    stats: HeavyStats,
+    p: int,
+    verify: Optional[bool] = None,
+) -> RoundProgram:
+    """Compile an arbitrary-arity query into a general :class:`RoundProgram`.
+
+    Acyclic queries (GYO-reducible) get the Yannakakis program: an up + down
+    :class:`TreeSemiJoin` sweep along the join tree (a full reducer — every
+    surviving tuple contributes), then a :class:`ShareRoute` over *all*
+    attributes and a tree-ordered :class:`CellJoin` chain.  Cyclic queries
+    skip the sweeps: the generalized HyperCube shares (fractional edge cover
+    LP exponents, Π shares ≤ p) bound the per-cell load by m/p^{1/ρ} on
+    skew-free data, and the same route + chain tail assembles the output.
+    Every attribute is a grid dimension (share-1 attributes collapse to
+    coordinate 0), so each result tuple materializes at exactly one cell —
+    the exactly-once emission the differential harness locks."""
+    rho_val = float(rho(query))
+    schemes = [r.scheme for r in query.relations]
+    tree = build_join_tree([frozenset(s) for s in schemes])
+    shares = uniform_lp_shares(query.hypergraph, p)
+    shares_t = tuple(sorted((a, int(s)) for a, s in shares.items()))
+    if tree is not None:
+        kind = "yannakakis"
+        root = tree.root
+        tree_edges = tuple(
+            (c, par, tuple(sorted(shared))) for c, par, shared in tree.edges
+        )
+        ops = GENERAL_ACYCLIC_OPS
+    else:
+        kind = "hypercube"
+        root = 0
+        tree_edges = ()
+        ops = GENERAL_CYCLIC_OPS
+    join_order = _general_join_order(schemes, tree_edges, root)
+    plan = GeneralPlan(
+        kind=kind,
+        tree_root=root,
+        tree_edges=tree_edges,
+        join_order=join_order,
+        shares=shares_t,
+    )
+    stage = GeneralStage(
+        kind=kind,
+        struct=(tuple(schemes), tree_edges, root, join_order, shares_t),
+    )
+    program = RoundProgram(
+        query=query,
+        p=p,
+        lam=stats.lam,
+        rho_val=rho_val,
+        stats=stats,
+        stages=[stage],
+        emit=[],
+        emit_counts={},
+        ops=ops,
+        general=plan,
+    )
+    if _verify_default() if verify is None else verify:
+        from .verify import verify_program  # local: verify imports this module
+
+        verify_program(program)
+    return program
+
+
 def compile_plan(
     query: JoinQuery,
     stats: HeavyStats,
@@ -399,15 +627,14 @@ def compile_plan(
     env var (on in the test suite, off by default — the service layer times
     its own verification pass).
 
-    Arbitrary-arity queries (``query.is_general``) raise
-    ``NotImplementedError``: they need the general route (join trees,
-    generalized HyperCube shares; ROADMAP Queue 1 item 7).
+    Arbitrary-arity queries (``query.is_general``) compile through
+    :func:`compile_general_plan`.
     """
     if query.is_general:
-        raise NotImplementedError(
-            "arbitrary-arity queries need the general route (TreeSemiJoin/ShareRoute/"
-            "CellJoin, ROADMAP Queue 1 item 7); only binary Theorem 6.2 programs compile"
-        )
+        # arbitrary-arity route: h_subsets/fuse_semijoin are binary-taxonomy
+        # knobs with no general counterpart — the general compiler ignores
+        # them (plan_cache_key keeps the keyspaces apart via is_general).
+        return compile_general_plan(query, stats, p, verify=verify)
 
     attset = query.attset
     k = len(attset)

@@ -35,11 +35,18 @@ raises a typed :class:`~repro_torch.mpc.faults.ProgramVerificationError` carryin
                          round load is ≤ the symbolic model bound of
                          :mod:`repro_torch.analysis.loadmodel` — the Theorem 6.2
                          Õ(m/p^{1/ρ}) promise as an executable assertion.
+  ``join-tree``          (general programs) the compiled join tree is real:
+                         full-intersection edge labels, running intersection,
+                         leaves-first sweep order, pre-order CellJoin chain,
+                         and no acyclic query demoted to the cyclic route.
+  ``share-exponent``     (general programs) HyperCube shares are positive
+                         ints over exactly the output attributes, Π ≤ p, and
+                         equal the fractional-edge-cover LP solution.
 
-The reference package's general-route rules (``join-tree``,
-``share-exponent`` and the general ``collective-stream`` check) wait for the
-general compiler (ROADMAP Queue 1 item 7): this package's ``compile_plan``
-compiles binary programs only.
+General programs (``program.general`` set) swap the binary-taxonomy rules
+(semijoin-fusion, grid-invariants) for ``join-tree`` + ``share-exponent`` and
+a general ``collective-stream`` check; scatter-binding and cap-grid apply to
+both routes unchanged.
 
 ``verify_program`` runs every static rule (everything but ``load-bound``).
 ``verify_bindings`` is the cheap warm-path subset: a plan-cache hit rebinds a
@@ -56,10 +63,14 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from ..analysis.loadmodel import MODEL_CONSTANT, round_bounds_by_name
+from ..core.jointree import JoinTree, build_join_tree, running_intersection_ok
 from ..core.planner import _stable_base
 from ..core.taxonomy import residual_size
 from .faults import ProgramVerificationError
+from .hypercube import uniform_lp_shares
 from .program import (
+    GENERAL_ACYCLIC_OPS,
+    GENERAL_CYCLIC_OPS,
     BroadcastSizes,
     GridRoute,
     HashPartition,
@@ -82,6 +93,8 @@ RULES = (
     "packed-key",
     "collective-stream",
     "load-bound",
+    "join-tree",
+    "share-exponent",
 )
 
 #: Cell-id space limit of the packed grid-route path (mirrors the
@@ -346,6 +359,140 @@ def _check_stages(program: RoundProgram) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
+# join-tree + share-exponent + collective-stream: the general route
+# ---------------------------------------------------------------------------
+
+
+def _check_general_stream(program: RoundProgram) -> int:
+    """``collective-stream`` for general programs: the op list must be the
+    exact compiler image — Scatter, both TreeSemiJoin sweeps (up before
+    down), ShareRoute, CellJoin for acyclic plans; Scatter, ShareRoute,
+    CellJoin for cyclic ones.  Anything else breaks either the strictly
+    serial collective order or the Yannakakis reduction (a down sweep before
+    the up sweep is not a full reducer)."""
+    want = (
+        GENERAL_ACYCLIC_OPS if program.general.kind == "yannakakis"
+        else GENERAL_CYCLIC_OPS
+    )
+    if tuple(program.ops) != want:
+        _fail("collective-stream", None,
+              f"general op sequence {program.op_sequence()} is not the "
+              f"canonical {[op.round for op in want]} stream for a "
+              f"{program.general.kind!r} plan — the semijoin sweeps must run "
+              f"up-then-down before the route, each collective exactly once")
+    return 1
+
+
+def _check_join_tree(program: RoundProgram) -> int:
+    """``join-tree``: the compiled plan's tree is a real join tree of the
+    query — every non-root relation hangs off exactly one parent, every edge
+    label is the full scheme intersection, the running intersection property
+    holds, the recorded order is leaves-first (a valid up sweep), and the
+    CellJoin order is a tree pre-order.  Cyclic plans must carry no tree and
+    acyclic queries must not have been demoted to the cyclic route."""
+    gen = program.general
+    schemes = [frozenset(r.scheme) for r in program.query.relations]
+    n = len(schemes)
+    real_tree = build_join_tree(schemes)
+    if gen.kind == "hypercube":
+        if gen.tree_edges:
+            _fail("join-tree", "hc-route",
+                  "cyclic (hypercube) plan carries join-tree edges")
+        if real_tree is not None:
+            _fail("join-tree", "hc-route",
+                  "query is GYO-acyclic but the plan routes it through the "
+                  "cyclic HyperCube program — the Yannakakis reduction was "
+                  "dropped")
+        if sorted(gen.join_order) != list(range(n)):
+            _fail("join-tree", "output",
+                  f"join order {gen.join_order} is not a permutation of the "
+                  f"{n} relations")
+        return 3
+    if real_tree is None:
+        _fail("join-tree", "yan-up",
+              "query is cyclic but the plan claims a Yannakakis join tree")
+    tree = JoinTree(
+        n_nodes=n,
+        root=gen.tree_root,
+        edges=tuple(
+            (c, par, frozenset(sh)) for c, par, sh in gen.tree_edges
+        ),
+    )
+    if not running_intersection_ok(schemes, tree):
+        _fail("join-tree", "yan-up",
+              f"tree edges {gen.tree_edges} violate the running intersection "
+              f"property (or are structurally broken) — the two semijoin "
+              f"sweeps would not be a full reducer")
+    checks = 2
+    for c, par, sh in gen.tree_edges:
+        if frozenset(sh) != schemes[c] & schemes[par]:
+            _fail("join-tree", "yan-up",
+                  f"edge ({c}, {par}) label {sh} is not the full scheme "
+                  f"intersection {sorted(schemes[c] & schemes[par])}")
+        checks += 1
+    removed: set = set()
+    for c, par, _ in gen.tree_edges:
+        if c in removed or par in removed:
+            _fail("join-tree", "yan-up",
+                  f"edge ({c}, {par}) fires after one endpoint was already "
+                  f"removed — the recorded order is not a leaves-first up "
+                  f"sweep (the down sweep, its reverse, breaks too)")
+        removed.add(c)
+        checks += 1
+    order = gen.join_order
+    if sorted(order) != list(range(n)):
+        _fail("join-tree", "output",
+              f"join order {order} is not a permutation of the {n} relations")
+    if order and order[0] != gen.tree_root:
+        _fail("join-tree", "output",
+              f"join order starts at {order[0]}, not the tree root "
+              f"{gen.tree_root}")
+    parent = tree.parent
+    placed = {gen.tree_root}
+    for node in order[1:]:
+        if parent.get(node) not in placed:
+            _fail("join-tree", "output",
+                  f"join order {order} joins relation {node} before its tree "
+                  f"parent — the chain step would be a cartesian blowup, not "
+                  f"a tree-edge join")
+        placed.add(node)
+        checks += 1
+    return checks + 2
+
+
+def _check_share_exponent(program: RoundProgram) -> int:
+    """``share-exponent``: the HyperCube shares are positive integers over
+    exactly the output attributes, their product respects the machine budget
+    Π ≤ p, and they equal the fractional-edge-cover LP solution the compiler
+    derives (`uniform_lp_shares`) — a tampered share vector either breaks
+    exactly-once cell assembly or the m/p^{1/ρ} load shape."""
+    gen = program.general
+    shares = dict(gen.shares)
+    attrs = set(program.query.attset)
+    if set(shares) != attrs:
+        _fail("share-exponent", "hc-route",
+              f"share attributes {sorted(shares)} do not cover the query "
+              f"attributes {sorted(attrs)} — unshared attributes break "
+              f"exactly-once cell assembly")
+    prod = 1
+    for a, s in sorted(shares.items()):
+        if not isinstance(s, int) or s < 1:
+            _fail("share-exponent", "hc-route",
+                  f"share({a}) = {s!r} is not a positive integer")
+        prod *= s
+    if prod > program.p:
+        _fail("share-exponent", "hc-route",
+              f"Π shares = {prod} exceeds the machine budget p = {program.p}")
+    want = uniform_lp_shares(program.query.hypergraph, program.p)
+    if shares != {a: int(s) for a, s in want.items()}:
+        _fail("share-exponent", "hc-route",
+              f"shares {sorted(shares.items())} disagree with the "
+              f"fractional-edge-cover LP solution "
+              f"{sorted((a, int(s)) for a, s in want.items())}")
+    return len(shares) + 3
+
+
+# ---------------------------------------------------------------------------
 # cap-grid + packed-key: executor-facing helpers
 # ---------------------------------------------------------------------------
 
@@ -445,6 +592,19 @@ def verify_program(
     pass (rule ``cap-grid``).  Raises :class:`ProgramVerificationError` on
     the first violation; returns a :class:`VerificationReport` otherwise."""
     checks = verify_bindings(program)
+    if getattr(program, "general", None) is not None:
+        # General (arbitrary-arity) programs: the binary taxonomy rules have
+        # no meaning here — the structural invariants are the join tree, the
+        # share exponents, and the general collective stream.
+        checks += _check_general_stream(program)
+        checks += _check_join_tree(program)
+        checks += _check_share_exponent(program)
+        if caps is not None:
+            checks += verify_caps(caps)
+        return VerificationReport(
+            p=program.p, stages=len(program.stages), checks=checks,
+            geometry_probes=0,
+        )
     checks += _check_op_stream(program)
     checks += _check_semijoin_fusion(program)
     stage_checks, probes = _check_stages(program)

@@ -108,8 +108,17 @@ def test_compile_plan_p64_matches_reference():
 
 
 def test_general_arity_raises_not_implemented():
+    """A query with a 3-ary relation compiles through the general route to
+    the reference's GeneralPlan and op stream (it raised before the route
+    was ported)."""
     rel3 = np.array([[0, 1, 2], [1, 2, 3]])
-    q = tquery.query_from_arrays([(("A", "B", "C"), rel3, None),
-                                  (("C", "D"), np.array([[2, 5], [3, 6]]), None)])
-    with pytest.raises(NotImplementedError, match="arbitrary-arity"):
-        tprog.compile_plan(q, ttax.compute_stats(q, 2), 4)
+    rel2 = np.array([[2, 5], [3, 6]])
+    q = tquery.query_from_arrays([(("A", "B", "C"), rel3, None), (("C", "D"), rel2, None)])
+    jq = JoinQuery.make([Relation.make(("A", "B", "C"), rel3), Relation.make(("C", "D"), rel2)])
+    tp = tprog.compile_plan(q, ttax.compute_stats(q, 2), 4)
+    jp = jprog.compile_plan(jq, compute_stats(jq, 2), 4)
+    assert tp.general is not None and tp.general.kind == "yannakakis"
+    assert repr(tp.general) == repr(jp.general)
+    assert tp.op_sequence() == jp.op_sequence() == [
+        "Scatter", "TreeSemiJoin[up]", "TreeSemiJoin[down]", "ShareRoute", "CellJoin"]
+    assert [repr(st.signature) for st in tp.stages] == [repr(st.signature) for st in jp.stages]

@@ -211,16 +211,22 @@ def test_count_only_run_and_load_report():
 
 
 def test_op_without_a_simulator_rule_names_the_general_route_item():
-    """The general route's ops (TreeSemiJoin, ShareRoute, CellJoin) have no
-    simulator rule until its compiler is ported: an op the simulator does not
-    know raises NotImplementedError naming that ROADMAP item."""
+    """Every op of both routes has a simulator rule (the general route's
+    TreeSemiJoin, ShareRoute and CellJoin too); an op the simulator does not
+    know still raises NotImplementedError, as the reference's does."""
     from dataclasses import replace
 
     q = tq.random_query(np.random.default_rng(8), "clique", 3, tuples_per_rel=60,
                         dom_size=12, skew=0.0)
     prog = compile_plan(q, t_compute_stats(q, 4), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        SimulatorExecutor(p=4).run(replace(prog, ops=prog.ops + (object(),)))
+    bad = replace(prog, ops=prog.ops + (object(),))
+    with pytest.raises(NotImplementedError, match="unknown op"):
+        SimulatorExecutor(p=4).run(bad)
+    jq_ = jq.random_query(np.random.default_rng(8), "clique", 3, tuples_per_rel=60,
+                          dom_size=12, skew=0.0)
+    jprog_ = j_compile_plan(jq_, j_compute_stats(jq_, 4), 4)
+    with pytest.raises(NotImplementedError, match="unknown op"):
+        JSimExecutor(p=4).run(replace(jprog_, ops=jprog_.ops + (object(),)))
 
 
 def test_distributed_stats_match_reference_and_oracle():

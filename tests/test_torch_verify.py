@@ -1,8 +1,9 @@
 """The port's static verifier (``repro_torch.mpc.verify``) and load model
 (``repro_torch.analysis.loadmodel``) ≡ the JAX package's, on the CPU.
 
-Twin of tests/test_verify.py's binary suite (its general-route cases wait for
-the general compiler).  Every mutation compiles a *good* program in each
+Twin of tests/test_verify.py, the binary suite and the general-program
+(``join-tree`` / ``share-exponent``) mutations.  Every mutation compiles a
+*good* program in each
 package from the same data, corrupts the same invariant in both, and asserts
 the port raises :class:`ProgramVerificationError` with exactly the
 reference's ``(rule, op_round)``.  Good programs verify clean with equal
@@ -297,8 +298,10 @@ def test_mutation_caught_with_the_reference_rule_and_round(name):
 
 
 def test_rules_are_the_binary_rules_of_the_reference():
-    assert set(RULES) <= set(j_verify.RULES)
-    assert set(j_verify.RULES) - set(RULES) == {"join-tree", "share-exponent"}
+    # the binary rules and, with the general route, the join-tree and
+    # share-exponent rules: the reference's list, in its order
+    assert RULES == tuple(j_verify.RULES)
+    assert {"join-tree", "share-exponent"} <= set(RULES)
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +399,230 @@ def test_bench_hub_triangle_load_bound_equals_reference_at_both_lambdas():
     assert lam_star == 4
     assert isinstance(at_star, dict) and max(at_star.values()) < 1.0
     assert at_24[:2] == ("load-bound", "step1")
+
+
+# ---------------------------------------------------------------------------
+# general (arbitrary-arity) programs: join-tree / share-exponent
+# ---------------------------------------------------------------------------
+
+
+def general_compiled(P, kind="star3", p=8, lam=8):
+    q = P.q.general_query(kind, n=60, dom_size=6, skew=0.5, seed=9)
+    return P.prog.compile_plan(q, P.compute_stats(q, lam), p, verify=False)
+
+
+def g_corrupted_tree_edge(P):
+    # reattach the first GYO-removed child under a non-parent leaf
+    prog = general_compiled(P)
+    gen = prog.general
+    c, par, sh = gen.tree_edges[0]
+    other = next(i for i, _ in enumerate(prog.query.relations)
+                 if i not in (c, par, gen.tree_root))
+    prog.general = replace(gen, tree_edges=((c, other, sh),) + gen.tree_edges[1:])
+    return lambda: P.v.verify_program(prog)
+
+
+def g_edge_label_not_full_intersection(P):
+    prog = general_compiled(P)
+    gen = prog.general
+    c, par, sh = gen.tree_edges[0]
+    prog.general = replace(gen, tree_edges=((c, par, ()),) + gen.tree_edges[1:])
+    return lambda: P.v.verify_program(prog)
+
+
+def g_edge_label_widened(P):
+    prog = general_compiled(P, "path4")
+    gen = prog.general
+    c, par, sh = gen.tree_edges[-1]
+    wide = tuple(sorted(set(sh) | set(prog.query.relations[c].scheme)))
+    prog.general = replace(gen, tree_edges=gen.tree_edges[:-1] + ((c, par, wide),))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_sweep_order_not_leaves_first(P):
+    prog = general_compiled(P, "snowflake")
+    gen = prog.general
+    e = list(gen.tree_edges)
+    e[0], e[1] = e[1], e[0]
+    prog.general = replace(gen, tree_edges=tuple(e))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_join_order_child_before_parent(P):
+    prog = general_compiled(P)
+    gen = prog.general
+    order = list(gen.join_order)
+    order[0], order[1] = order[1], order[0]
+    prog.general = replace(gen, join_order=tuple(order))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_join_order_grandchild_first(P):
+    # snowflake: the chain keeps the root first but joins a leaf of depth 2
+    # before its parent
+    prog = general_compiled(P, "snowflake")
+    gen = prog.general
+    order = list(gen.join_order)
+    parent = {c: par for c, par, _ in gen.tree_edges}
+    deep = next(n for n in order if parent.get(n) not in (None, gen.tree_root))
+    order.remove(deep)
+    order.insert(1, deep)
+    prog.general = replace(gen, join_order=tuple(order))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_join_order_not_a_permutation(P):
+    prog = general_compiled(P, "triangle")
+    gen = prog.general
+    prog.general = replace(gen, join_order=gen.join_order[:-1] + (gen.join_order[0],))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_acyclic_demoted_to_cyclic(P):
+    prog = general_compiled(P)
+    prog.general = replace(prog.general, kind="hypercube", tree_edges=())
+    prog.ops = P.prog.GENERAL_CYCLIC_OPS
+    return lambda: P.v.verify_program(prog)
+
+
+def g_cyclic_plan_with_tree_edges(P):
+    prog = general_compiled(P, "triangle")
+    prog.general = replace(prog.general, tree_edges=((1, 0, ("X1",)),))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_cyclic_claims_yannakakis(P):
+    prog = general_compiled(P, "triangle")
+    prog.general = replace(prog.general, kind="yannakakis")
+    prog.ops = P.prog.GENERAL_ACYCLIC_OPS
+    return lambda: P.v.verify_program(prog)
+
+
+def g_share_product_over_budget(P):
+    prog = general_compiled(P, "triangle")
+    gen = prog.general
+    prog.general = replace(gen, shares=tuple((a, s * 4) for a, s in gen.shares))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_budget_legal_but_non_lp_shares(P):
+    prog = general_compiled(P, "triangle")
+    gen = prog.general
+    attrs = [a for a, _ in gen.shares]
+    prog.general = replace(gen, shares=((attrs[0], 8),) + tuple((a, 1) for a in attrs[1:]))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_share_attribute_dropped(P):
+    prog = general_compiled(P, "star3", p=64)
+    gen = prog.general
+    prog.general = replace(gen, shares=gen.shares[1:])
+    return lambda: P.v.verify_program(prog)
+
+
+def g_zero_share(P):
+    prog = general_compiled(P, "star3", p=64)
+    gen = prog.general
+    (a, _), rest = gen.shares[0], gen.shares[1:]
+    prog.general = replace(gen, shares=((a, 0),) + rest)
+    return lambda: P.v.verify_program(prog)
+
+
+def g_general_sweep_out_of_order(P):
+    prog = general_compiled(P)
+    prog.ops = (P.prog.Scatter(), P.prog.TreeSemiJoin(phase="down"),
+                P.prog.TreeSemiJoin(phase="up"), P.prog.ShareRoute(), P.prog.CellJoin())
+    return lambda: P.v.verify_program(prog)
+
+
+def g_general_share_route_dropped(P):
+    prog = general_compiled(P, "triangle")
+    prog.ops = tuple(op for op in prog.ops if not isinstance(op, P.prog.ShareRoute))
+    return lambda: P.v.verify_program(prog)
+
+
+def g_general_binary_op_spliced_in(P):
+    prog = general_compiled(P, "path4")
+    prog.ops = prog.ops[:3] + (P.prog.GridRoute(),) + prog.ops[3:]
+    return lambda: P.v.verify_program(prog)
+
+
+def g_general_off_grid_learned_cap(P):
+    prog = general_compiled(P)
+    return lambda: P.v.verify_program(prog, caps={("hc-route", ("ghc", 0), "k", None): {
+        "slot": 17, "out": 32}})
+
+
+GENERAL_MUTATIONS = {f.__name__[2:]: f for f in [
+    g_corrupted_tree_edge, g_edge_label_not_full_intersection, g_edge_label_widened,
+    g_sweep_order_not_leaves_first, g_join_order_child_before_parent,
+    g_join_order_grandchild_first, g_join_order_not_a_permutation,
+    g_acyclic_demoted_to_cyclic, g_cyclic_plan_with_tree_edges, g_cyclic_claims_yannakakis,
+    g_share_product_over_budget, g_budget_legal_but_non_lp_shares, g_share_attribute_dropped,
+    g_zero_share, g_general_sweep_out_of_order, g_general_share_route_dropped,
+    g_general_binary_op_spliced_in, g_general_off_grid_learned_cap,
+]}
+
+#: the reference's rule where tests/test_verify.py pins it
+GENERAL_PINNED = {
+    "corrupted_tree_edge": "join-tree",
+    "sweep_order_not_leaves_first": "join-tree",
+    "join_order_child_before_parent": "join-tree",
+    "acyclic_demoted_to_cyclic": "join-tree",
+    "share_product_over_budget": "share-exponent",
+    "budget_legal_but_non_lp_shares": "share-exponent",
+    "general_sweep_out_of_order": "collective-stream",
+}
+
+
+def general_raised(P, name):
+    thunk = GENERAL_MUTATIONS[name](P)
+    with pytest.raises(P.Error) as ei:
+        thunk()
+    return ei.value.rule, ei.value.op_round, str(ei.value)
+
+
+@pytest.mark.parametrize("name", list(GENERAL_MUTATIONS))
+def test_general_mutation_caught_with_the_reference_rule_and_round(name):
+    got, want = general_raised(PORT, name), general_raised(REF, name)
+    assert got[:2] == want[:2]
+    assert got[0] in RULES
+    if name in GENERAL_PINNED:
+        assert got[0] == GENERAL_PINNED[name]
+    if name == "share_product_over_budget":
+        assert "exceeds the machine budget" in got[2]
+
+
+@pytest.mark.parametrize("kind", ["star3", "snowflake", "path4", "triangle"])
+@pytest.mark.parametrize("p", [8, 64])
+def test_good_general_programs_verify_clean_with_equal_reports(kind, p):
+    got = verify_program(general_compiled(PORT, kind, p=p))
+    want = j_verify.verify_program(general_compiled(REF, kind, p=p))
+    assert repr(got) == repr(want)
+    assert got.checks > 0 and got.geometry_probes == 0
+    assert general_compiled(PORT, kind).general.kind == (
+        "hypercube" if kind == "triangle" else "yannakakis")
+
+
+@pytest.mark.parametrize("kind", ["star3", "snowflake", "path4", "triangle"])
+def test_general_check_load_fractions_equal_reference(kind):
+    """The four general families at p=64, the canonical λ: the metered
+    simulator's general rounds are held to the load model in both packages
+    with equal fractions, or fail with the same rule and round."""
+    def run(P):
+        q = P.q.general_query(kind, n=120, dom_size=16, skew=0.8, seed=11)
+        lam = P.heavy_parameter(64, P.rho(q))
+        prog = P.prog.compile_plan(q, P.compute_stats(q, lam), 64, verify=False)
+        res = P.SimulatorExecutor(p=64).run(prog, materialize=False)
+        try:
+            return P.v.check_load(prog, res)
+        except P.Error as e:
+            return (e.rule, e.op_round)
+
+    got, want = run(PORT), run(REF)
+    assert got == want
+    if isinstance(got, dict):
+        assert "hc-route" in got
 
 
 # ---------------------------------------------------------------------------
