@@ -106,10 +106,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with ``check_load`` passing; cold and warm wall time, the session's µs
      split, the host share of ``execute_us``, retries, launches and peak
      device memory logged per configuration;
-  then the ``kernels`` JSON line (six rows).  Phases 3-5 give its launch
-  counts, on a session that does not verify (the service's default);
-  patterns, service, verify, simulator and general run after them (phase 6
-  and 7 follow).
+  serve: the LM serve path (``repro_torch.models``) at published full width
+     and depth, random weights from a seeded generator on the card:
+     h2o-danube-1.8b (24 layers, every prefill attention on
+     ``flash_attention``) and mamba2-780m (48 layers, every prefill SSD scan
+     on ``ssd_chunk``), each a cold and a warm prefill of 4 x 2048
+     ``synth_batch`` tokens and 64 greedy ``make_serve_step`` steps (cold and
+     warm prefill ms, decode ms per step and tokens/s, peak device memory;
+     the kernel launched exactly once per attention / Mamba layer per
+     prefill, never in decode), one prefill with every kernel call held
+     against its plain version, one profiled (torch.profiler: the kernel's
+     and the matrix products' shares of the device time, the idle share),
+     and the kernel timed at the largest inputs the serving run gave it;
+     then each model cut to 2 layers in float32, the same weights on the CPU
+     and the card: a 256-token prompt and 8 greedy steps, logits within
+     1e-3 + 1e-3·|CPU| and the same token wherever the CPU's top-2 margin
+     allows;
+  then the ``kernels`` JSON line (six rows).  Phases 3-5 give the join
+  kernels' launch counts, on a session that does not verify (the service's
+  default), the serve phase those of ``flash_attention`` and ``ssd_chunk``
+  (their main path: the two serving runs), and their rows are timed at the
+  serve path's inputs; ``hash_partition``'s row is phase 7's.  Patterns,
+  service, verify, simulator and general run after phases 3-5 (phase 6 and
+  7 follow, then serve).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 
@@ -123,11 +142,14 @@ under cProfile (host time by function) and one under torch.profiler
 from __future__ import annotations
 
 import argparse
+import copy
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -297,32 +319,55 @@ def reset_counts() -> None:
     _build.launches.clear()
 
 
+def wrapped_kernels(names):
+    """(module, wrapper attribute, kernel name) of each kernel named."""
+    hp, mj = kernel_modules()
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    ssd = importlib.import_module("repro_torch.kernels.ssd")
+    table = {"hash_partition_pack": (hp, "hash_partition_pack_cuda"),
+             "merge_join_counts": (mj, "merge_join_counts_cuda"),
+             "merge_join_pairs": (mj, "merge_join_pairs_cuda"),
+             "flash_attention": (fa, "flash_attention_cuda"),
+             "ssd_chunk": (ssd, "ssd_chunk_cuda")}
+    return [table[name] + (name,) for name in names]
+
+
 class InputCapture:
     """Keeps a copy of the largest inputs each kernel wrapper was called with
     (by element count), so phase 6 times the kernels at main-path shapes.
 
     With ``check=True`` it keeps no copies and instead holds every call's
-    result against the kernel's plain version on the same inputs (bit for
-    bit; raises on the first difference), counting the calls it checked
-    and, for merge_join_counts, the probe keys that matched nothing (the
-    non-members a semijoin must drop)."""
+    result against the kernel's plain version on the same inputs (the join
+    kernels bit for bit; ``flash_attention`` by ``attention_close``, 1e-4 +
+    1e-4·|plain| in float32 and the bf16 rounding limit in bfloat16;
+    ``ssd_chunk`` by ``ssd_close``, 1e-4 of the plain version's largest
+    magnitude; raises on the first difference), counting the calls it checked,
+    the largest |Δ| of the float kernels (``max_err``) and, for
+    merge_join_counts, the probe keys that matched nothing (the non-members a
+    semijoin must drop).  ``kernels`` names the wrappers it takes over (the
+    join kernels by default)."""
 
-    def __init__(self, check: bool = False):
-        self.check = check
-        self.best, self.checked, self.largest = {}, {}, {}
+    def __init__(self, check: bool = False, kernels=JOIN_KERNELS):
+        self.check, self.kernels = check, tuple(kernels)
+        self.best, self.checked, self.largest, self.max_err = {}, {}, {}, {}
         self.unmatched = 0
         self._restore = []
+
+    def _check_float(self, torch, name, got, args) -> float:
+        from repro_torch.kernels import ref
+
+        if name == "flash_attention":
+            q, k, v, causal = args
+            return attention_close(torch, got, q, k, v, bool(causal))["max_abs_err"]
+        return ssd_close(torch, got, ref.ssd_chunked_ref(*args))
 
     def install(self):
         import torch
         from repro_torch.kernels import ref
 
-        hp, mj = kernel_modules()
-        for mod, attr, name in ((hp, "hash_partition_pack_cuda", "hash_partition_pack"),
-                                (mj, "merge_join_counts_cuda", "merge_join_counts"),
-                                (mj, "merge_join_pairs_cuda", "merge_join_pairs")):
+        for mod, attr, name in wrapped_kernels(self.kernels):
             orig = getattr(mod, attr)
-            plain = getattr(ref, f"{name}_ref")
+            plain = getattr(ref, f"{name}_ref", None)
 
             def rec(*args, _orig=orig, _plain=plain, _name=name):
                 size = sum(a.numel() for a in args if hasattr(a, "numel"))
@@ -332,11 +377,16 @@ class InputCapture:
                                                    for a in args])
                     return _orig(*args)
                 got = _orig(*args)
-                for g, w in zip(got, _plain(*args)):
-                    if g.shape != w.shape or not torch.equal(g.to(torch.int64),
-                                                             w.to(torch.int64)):
-                        raise AssertionError(f"{_name}: kernel differs from its plain version "
-                                             f"at {[tuple(a.shape) for a in args[:2]]}")
+                if _name in LIBRARY_KERNELS:
+                    err = self._check_float(torch, _name, got, args)
+                    self.max_err[_name] = max(self.max_err.get(_name, 0.0), err)
+                else:
+                    for g, w in zip(got, _plain(*args)):
+                        if g.shape != w.shape or not torch.equal(g.to(torch.int64),
+                                                                 w.to(torch.int64)):
+                            raise AssertionError(
+                                f"{_name}: kernel differs from its plain version "
+                                f"at {[tuple(a.shape) for a in args[:2]]}")
                 self.checked[_name] = self.checked.get(_name, 0) + 1
                 if size > self.largest.get(_name, (-1,))[0]:
                     self.largest[_name] = (size, [tuple(a.shape) for a in args[:2]])
@@ -1246,6 +1296,75 @@ def phase_library_kernels(torch, dev) -> None:
             f"max |err| {err:.3g}")
 
 
+def attention_case(torch, q, k, v, batch: int, heads: int) -> dict:
+    """Causal attention over q/k/v (BH, S, D), BH = batch·heads, for
+    ``library_row``: the kernel, its plain version (8 heads at a time: it holds a
+    (heads, S, S) fp32 score tensor), SDPA, and the bound's FLOPs and bytes."""
+    from repro_torch.kernels import ops, ref
+
+    bh, seq, hd = q.shape
+    plain = lambda: torch.cat([ref.flash_attention_ref(q[i:i + 8], k[i:i + 8], v[i:i + 8], True)
+                               for i in range(0, bh, 8)])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = bh * seq * (seq + 1) // 2                # (q, k) pairs the causal mask keeps
+    return dict(
+        kern=lambda: ops.flash_attention(q, k, v, causal=True, bq=seq, bk=seq), plain=plain,
+        # SDPA's fused kernels take (batch, heads, S, D); (BH, S, D) would send it to
+        # its unfused math path
+        library=lambda: sdpa(*(x.view(batch, heads, seq, hd) for x in (q, k, v)),
+                             is_causal=True),
+        flops=4 * hd * pairs,
+        peak=BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S,
+        nbytes=q.element_size() * (q.numel() * 2 + k.numel() + v.numel()),
+        shape=f"BH={bh} S={seq} D={hd} {str(q.dtype)[6:]} causal")
+
+
+def ssd_case(torch, ssd_args, chunk: int) -> dict:
+    """ssd_chunk over (x, dt, a, b, c) for ``library_row``."""
+    from repro_torch.kernels import ops, ref
+
+    bh, s_len, p_dim = ssd_args[0].shape
+    n_dim = ssd_args[3].shape[2]
+    # per chunk: C·Bᵀ and the weighted x on the causal triangle, then the
+    # inter-chunk term C·prevᵀ and the state update xᵀ·B, 2 FLOPs per MAC
+    tri = chunk * (chunk + 1) // 2
+    flops = bh * (s_len // chunk) * 2 * (tri * (n_dim + p_dim) + 2 * chunk * p_dim * n_dim)
+    return dict(
+        kern=lambda: ops.ssd_chunk(*ssd_args, chunk=chunk),
+        plain=lambda: ref.ssd_chunked_ref(*ssd_args, chunk), library=None,
+        # the least time for the work on any pipe: the TF32 tensor cores
+        flops=flops, peak=TF32_FLOP_PER_S,
+        nbytes=4 * (sum(a.numel() for a in ssd_args) + ssd_args[0].numel() + bh * p_dim * n_dim),
+        shape=f"BH={bh} S={s_len} chunk={chunk} P={p_dim} N={n_dim} fp32")
+
+
+def library_row(torch, name: str, c: dict, launches: int, err: float, tag: str,
+                device_time: bool) -> dict:
+    """Time one kernel case beside its plain version, its library call and its
+    bound (``time_rounds``; with ``device_time`` also torch.profiler's device ms and
+    operations per call) → its row of the ``kernels`` line, logged under ``tag``."""
+    med, spread = time_rounds(torch, c["kern"], c["plain"], c["library"])
+    extra = ""
+    if device_time:
+        dev_ms, dev_ops, dev_names = device_ms(torch, c["kern"])
+        extra = (f"; device {dev_ms:.4f} ms and {dev_ops:g} device operations per call "
+                 f"({', '.join(dev_names)})")
+    ops_ms = c["flops"] / c["peak"] * 1e3
+    bytes_ms = c["nbytes"] / HBM_BYTES_PER_S * 1e3
+    source, replaces = KERNELS[name]
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": launches, "max_abs_err": err, "ms": med["kernel"],
+           "plain_ms": med["plain"], "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+           "library_ms": med.get("library")}
+    log(f"[{tag}] {name} {c['shape']}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({c['flops']:.4g} FLOP -> {ops_ms:.4f} ms, "
+        f"{c['nbytes']} bytes -> {bytes_ms:.4f} ms), max_abs_err {row['max_abs_err']}"
+        f"{extra}; medians of 5 rounds, range ms: {spread}")
+    return row
+
+
 def phase_library(torch, dev) -> list:
     """Phase 7: the kernel library at model widths.
 
@@ -1290,10 +1409,6 @@ def phase_library(torch, dev) -> list:
         if count <= 0:
             raise AssertionError(f"{name}: no launch in phase 7")
 
-    # the plain attention holds a (BH, S, S) fp32 score tensor: 8 heads at a time
-    plain_attn = lambda: torch.cat([ref.flash_attention_ref(q[i:i + 8], k[i:i + 8],
-                                                            v[i:i + 8], True)
-                                    for i in range(0, q.shape[0], 8)])
     controls = {"dropped_tile": lambda *a: dropped_tile_control(torch, *a),
                 "unrounded": lambda *a: unrounded_control(torch, *a)}
     attn_check = attention_close(torch, attn, q, k, v, True, controls)
@@ -1315,61 +1430,18 @@ def phase_library(torch, dev) -> list:
     torch.cuda.empty_cache()
     log(f"[library] outputs agree with the plain versions: {json.dumps(errs)}")
 
-    bh_attn, bh_ssd = q.shape[0], ssd_args[0].shape[0]
-    pairs = bh_attn * seq * (seq + 1) // 2          # (q, k) pairs the causal mask keeps
-    # per chunk: C·Bᵀ and the weighted x on the causal triangle, then the
-    # inter-chunk term C·prevᵀ and the state update xᵀ·B, 2 FLOPs per MAC
-    tri = chunk * (chunk + 1) // 2
-    ssd_flops = bh_ssd * (s_len // chunk) * 2 * (tri * (n_dim + p_dim)
-                                                 + 2 * chunk * p_dim * n_dim)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = {
-        "flash_attention": dict(
-            kern=lambda: ops.flash_attention(q, k, v, causal=True), plain=plain_attn,
-            # SDPA's fused kernels take (batch, heads, S, D); (BH, S, D) would
-            # send it to its unfused math path
-            library=lambda: sdpa(*(x.view(batch, heads, seq, hd) for x in (q, k, v)),
-                                 is_causal=True),
-            flops=4 * hd * pairs, peak=BF16_FLOP_PER_S,
-            nbytes=2 * (q.numel() * 2 + k.numel() + v.numel()),
-            shape=f"BH={bh_attn} S={seq} D={hd} bf16 causal"),
-        "ssd_chunk": dict(
-            kern=lambda: ops.ssd_chunk(*ssd_args, chunk=chunk),
-            plain=lambda: ref.ssd_chunked_ref(*ssd_args, chunk), library=None,
-            # the least time for the work on any pipe: the TF32 tensor cores
-            flops=ssd_flops, peak=TF32_FLOP_PER_S,
-            nbytes=4 * (sum(a.numel() for a in ssd_args) + ssd_args[0].numel()
-                        + bh_ssd * p_dim * n_dim),
-            shape=f"BH={bh_ssd} S={s_len} chunk={chunk} P={p_dim} N={n_dim} fp32"),
-        "hash_partition": dict(
-            kern=lambda: ops.hash_partition(keys32, HASH_PARTS),
-            plain=lambda: ref.hash_partition_ref(keys32, HASH_PARTS), library=None,
-            flops=0, peak=1.0, nbytes=8 * keys32.numel() + 4 * HASH_PARTS,
-            shape=f"N={HASH_KEYS} int32 P={HASH_PARTS}"),
-    }
+    cases = {"flash_attention": attention_case(torch, q, k, v, batch, heads),
+             "ssd_chunk": ssd_case(torch, ssd_args, chunk),
+             "hash_partition": dict(
+                 kern=lambda: ops.hash_partition(keys32, HASH_PARTS),
+                 plain=lambda: ref.hash_partition_ref(keys32, HASH_PARTS), library=None,
+                 flops=0, peak=1.0, nbytes=8 * keys32.numel() + 4 * HASH_PARTS,
+                 shape=f"N={HASH_KEYS} int32 P={HASH_PARTS}")}
     rows = []
     for name in LIBRARY_KERNELS:
-        c = cases[name]
-        med, spread = time_rounds(torch, c["kern"], c["plain"], c["library"])
-        extra = ""
-        if name != "flash_attention":       # the two redesigned last
-            dev_ms, dev_ops, dev_names = device_ms(torch, c["kern"])
-            extra = (f"; device {dev_ms:.4f} ms and {dev_ops:g} device operations per call "
-                     f"({', '.join(dev_names)})")
-        ops_ms = c["flops"] / c["peak"] * 1e3
-        bytes_ms = c["nbytes"] / HBM_BYTES_PER_S * 1e3
-        source, replaces = KERNELS[name]
-        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launches[name], "max_abs_err": errs[name], "ms": med["kernel"],
-               "plain_ms": med["plain"], "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
-               "library_ms": med.get("library")}
-        log(f"[library] {name} {c['shape']}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({c['flops']:.4g} FLOP -> {ops_ms:.4f} ms, "
-            f"{c['nbytes']} bytes -> {bytes_ms:.4f} ms), max_abs_err {row['max_abs_err']}"
-            f"{extra}; medians of 5 rounds, range ms: {spread}")
-        rows.append(row)
+        # the two redesigned last also by device time
+        rows.append(library_row(torch, name, cases[name], launches[name], errs[name],
+                                "library", device_time=name != "flash_attention"))
         torch.cuda.empty_cache()
     del ssd_args, keys32, keys64, folded, q, k, v
     torch.cuda.empty_cache()
@@ -2280,6 +2352,252 @@ def phase_timing_general(torch, capture: InputCapture) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Serving: the LM serve path at full width (``repro_torch.models``)
+# ---------------------------------------------------------------------------
+
+#: the serve phase's models at their published width and depth
+#: (src/repro_torch/configs/), the kernel each one's prefill runs once per
+#: layer of the mixer named, and the name of that kernel's device functions
+SERVE_CASES = (("serve-danube", "h2o-danube-1.8b", "flash_attention", "attn", r"flash_fwd"),
+               ("serve-mamba2", "mamba2-780m", "ssd_chunk", "mamba", r"ssd_"))
+# the load: batch x prompt tokens (within danube's 4096-token window, a multiple
+# of mamba2's 256-step chunk), then greedy decode steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 64
+# the card against the CPU: the same models cut to 2 layers, in float32, one
+# 256-token prompt and 8 greedy steps; logits within 1e-3 + 1e-3·|CPU|
+PARITY_LAYERS, PARITY_PROMPT, PARITY_STEPS, PARITY_TOL = 2, 256, 8, 1e-3
+# cuBLAS's and CUTLASS's matrix-product kernels, by name
+MATMUL_KERNELS = re.compile(r"gemm|nvjet|xmma|cutlass|s16816|wgmma|matmul", re.I)
+
+
+def serve_prefill(torch, cfg, model, batch, cache_len: int):
+    """One prefill timed by the host clock, ending in a synchronize →
+    (last-token logits, cache, ms)."""
+    from repro_torch.models.model import prefill
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = prefill(cfg, model, batch, cache_len=cache_len)
+    torch.cuda.synchronize()
+    return logits, cache, (time.perf_counter() - t0) * 1e3
+
+
+def profile_run(torch, fn, kernel_names: str) -> dict:
+    """``fn()`` once under torch.profiler: the device time, the shares of it spent
+    in the hand kernel (device functions matching ``kernel_names``) and in matrix
+    products, the idle share of the wall clock (profiler overhead included), and
+    the eight longest device functions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events)
+    if busy <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    kern = sum(e.self_device_time_total for e in events if re.search(kernel_names, e.key))
+    mm = sum(e.self_device_time_total for e in events if MATMUL_KERNELS.search(e.key))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3, "kernel_share": kern / busy,
+            "matmul_share": mm / busy, "other_share": 1 - (kern + mm) / busy,
+            "idle_share": max(0.0, 1 - busy / wall_us),
+            "device_ops": sum(e.count for e in events),
+            "top": [[e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count]
+                    for e in top]}
+
+
+def serve_model(torch, dev, tag: str, arch: str, kernel: str, mixer: str,
+                kernel_names: str, smi: str) -> dict:
+    """One model at its published width and depth, random weights from a seeded
+    generator on the card: a cold and a warm prefill of SERVE_BATCH x
+    SERVE_PROMPT tokens and SERVE_STEPS greedy steps through ``make_serve_step``
+    (the counts zeroed just before and read just after: ``kernel`` launches once
+    per ``mixer`` layer per prefill, and never in decode) and one more decode
+    step under torch.profiler; then one prefill with every kernel call held
+    against its plain version, one that keeps the kernel's largest inputs, and
+    one under torch.profiler."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.step import make_serve_step
+
+    cfg = get_arch(arch)
+    n_mixer = sum(cfg.block_at(i).mixer == mixer for i in range(cfg.n_layers))
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()          # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    log(f"[serve] {tag}: {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params:,} parameters ({weight_gib:.3f} GiB {cfg.dtype}) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    raw = synth_batch(cfg, step=0, global_batch=SERVE_BATCH, seq=SERVE_PROMPT)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items() if k != "labels"}
+    cache_len = SERVE_PROMPT + SERVE_STEPS
+
+    reset_counts()
+    logits, cache, cold_ms = serve_prefill(torch, cfg, model, batch, cache_len)
+    per_prefill = launch_counts([kernel])[kernel]
+    if per_prefill != n_mixer:
+        raise AssertionError(f"{tag}: {kernel} launched {per_prefill} times in one prefill, "
+                             f"want one per {mixer} layer ({n_mixer})")
+    del cache
+    logits, cache, warm_ms = serve_prefill(torch, cfg, model, batch, cache_len)
+    serve_step = make_serve_step(cfg)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    gen = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEPS):
+        tok, logits, cache = serve_step(model, cache, tok)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = launch_counts([kernel])[kernel]
+    if launches != 2 * n_mixer:
+        raise AssertionError(f"{tag}: {launches} {kernel} launches over two prefills and "
+                             f"{SERVE_STEPS} decode steps, want {2 * n_mixer}")
+    gen = torch.stack(gen, dim=1).cpu().numpy()
+    if (gen.shape != (SERVE_BATCH, SERVE_STEPS + 1) or not bool(torch.isfinite(logits).all())
+            or gen.min() < 0 or gen.max() >= cfg.vocab_padded
+            or cache["pos"] != SERVE_PROMPT + SERVE_STEPS):
+        raise AssertionError(f"{tag}: bad serve output {gen.shape}, pos {cache['pos']}")
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    step_prof = profile_run(torch, lambda: serve_step(model, cache, tok), kernel_names)
+    log(f"[serve] {tag}: one profiled decode step on {smi}: {json.dumps(step_prof)}")
+    tokens = SERVE_BATCH * SERVE_STEPS
+    stats = {"cold_prefill_ms": cold_ms, "warm_prefill_ms": warm_ms,
+             "decode_ms_per_step": decode_s * 1e3 / SERVE_STEPS,
+             "decode_tokens_per_s": tokens / decode_s, "peak_gib": peak_gib,
+             "launches_per_prefill": per_prefill}
+    prefill_rate = SERVE_BATCH * SERVE_PROMPT / warm_ms * 1e3
+    log(f"[serve] {tag} on {smi}: batch {SERVE_BATCH} x {SERVE_PROMPT} tokens, prefill cold "
+        f"{cold_ms:.1f} ms, warm {warm_ms:.1f} ms ({prefill_rate:,.0f} tokens/s); "
+        f"{SERVE_STEPS} greedy steps {decode_s * 1e3:.1f} ms "
+        f"({stats['decode_ms_per_step']:.3f} ms/step, {stats['decode_tokens_per_s']:,.0f} "
+        f"tokens/s); peak device memory {peak_gib:.3f} GiB above the {held / 2**30:.3f} GiB "
+        f"held before the model; {kernel} launches {per_prefill} per prefill, {launches} "
+        f"over the run; first row {gen[0][:12].tolist()}")
+    del cache, logits
+
+    with InputCapture(check=True, kernels=(kernel,)) as checker:
+        serve_prefill(torch, cfg, model, batch, cache_len)
+    if checker.checked.get(kernel, 0) != n_mixer:
+        raise AssertionError(f"{tag}: the checked prefill held {checker.checked} calls")
+    log(f"[serve] {tag}: checked prefill, {checker.checked[kernel]} {kernel} calls at "
+        f"{checker.largest[kernel][1]} each within their limit of the plain version, "
+        f"max |err| {checker.max_err[kernel]:.4g}")
+    capture = InputCapture(kernels=(kernel,))
+    with capture:
+        serve_prefill(torch, cfg, model, batch, cache_len)
+    prof = profile_run(torch, lambda: serve_prefill(torch, cfg, model, batch, cache_len),
+                       kernel_names)
+    stats.update({k: prof[k] for k in ("kernel_share", "matmul_share", "idle_share")})
+    stats["decode_idle_share"] = step_prof["idle_share"]
+    log(f"[serve] {tag}: profiled warm prefill on {smi}: {json.dumps(prof)}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "launches": launches, "max_err": checker.max_err[kernel],
+            "inputs": capture.best[kernel][1], "stats": stats}
+
+
+def serve_parity(torch, dev, arch: str) -> dict:
+    """The card against the CPU at full width, depth cut to PARITY_LAYERS, in
+    float32: the same weights (drawn on the CPU from a seeded generator, then
+    copied), one PARITY_PROMPT-token prompt, PARITY_STEPS greedy steps fed the
+    CPU's tokens. Logits within PARITY_TOL + PARITY_TOL·|CPU|; the card's token
+    equals the CPU's wherever the CPU's top-2 margin exceeds twice that limit
+    (a smaller margin is logged, and its token not held)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.train.data import synth_batch
+
+    cfg = replace(get_arch(arch), n_layers=PARITY_LAYERS, dtype="float32")
+    cpu_model = init_params(cfg, seed=1, device="cpu")
+    card = copy.deepcopy(cpu_model).to(dev)
+    raw = synth_batch(cfg, step=1, global_batch=1, seq=PARITY_PROMPT)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in raw.items() if k != "labels"}
+    cache_len = PARITY_PROMPT + PARITY_STEPS
+    out = {"max_abs_err": 0.0, "held": 0, "not_held": []}
+
+    def compare(want, got, what):
+        got = got.float().cpu()
+        lim = PARITY_TOL + PARITY_TOL * want.abs()
+        err = (got - want).abs()
+        if not bool(torch.isfinite(got).all()) or bool((err > lim).any()):
+            raise AssertionError(f"{arch} depth {PARITY_LAYERS}: card logits differ from the "
+                                 f"CPU's at {what} by {float(err.max())}")
+        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+        top2 = torch.topk(want, 2, dim=-1)
+        for b in range(want.shape[0]):
+            margin = float(top2.values[b, 0] - top2.values[b, 1])
+            need = 2 * float(lim[b, top2.indices[b, 0]])
+            card_tok, cpu_tok = int(got[b].argmax()), int(top2.indices[b, 0])
+            if margin > need:
+                if card_tok != cpu_tok:
+                    raise AssertionError(f"{arch}: {what} token {card_tok} on the card, "
+                                         f"{cpu_tok} on the CPU, margin {margin}")
+                out["held"] += 1
+            else:
+                out["not_held"].append([what, margin, cpu_tok, card_tok])
+                log(f"[serve] parity {arch}: {what} top-2 margin {margin:.3g} <= {need:.3g}: "
+                    f"token not held (CPU {cpu_tok}, card {card_tok})")
+
+    with torch.no_grad():
+        want, cpu_cache = prefill(cfg, cpu_model, cpu_batch, cache_len=cache_len)
+        got, card_cache = prefill(cfg, card, {k: v.to(dev) for k, v in cpu_batch.items()},
+                                  cache_len=cache_len)
+        compare(want, got, "prefill")
+        for i in range(PARITY_STEPS):
+            tok = torch.argmax(want, dim=-1).to(torch.int32)
+            want, cpu_cache = decode_step(cfg, cpu_model, cpu_cache, tok)
+            got, card_cache = decode_step(cfg, card, card_cache, tok.to(dev))
+            compare(want, got, f"step {i}")
+    log(f"[serve] parity {arch}, {PARITY_LAYERS} layers, float32, {PARITY_PROMPT}-token prompt "
+        f"+ {PARITY_STEPS} steps, card against CPU: max |err| {out['max_abs_err']:.4g} "
+        f"(limit {PARITY_TOL} + {PARITY_TOL}·|CPU|), {out['held']} tokens held equal, "
+        f"{len(out['not_held'])} not held")
+    del card, card_cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(torch, dev, smi: str) -> dict:
+    """The serve phase: each of SERVE_CASES at full width and depth
+    (``serve_model``), its kernel then timed at the largest inputs the serving
+    run gave it (its ``kernels`` row: launches from the serving run, max |err|
+    from the checked prefill), then each model's depth-cut card-against-CPU
+    parity → the rows by kernel name."""
+    rows = {}
+    for tag, arch, kernel, mixer, names in SERVE_CASES:
+        res = serve_model(torch, dev, tag, arch, kernel, mixer, names, smi)
+        cfg, args = res["cfg"], res["inputs"]
+        if kernel == "flash_attention":
+            case = attention_case(torch, *args[:3], SERVE_BATCH, cfg.n_heads)
+        else:
+            case = ssd_case(torch, args[:5], args[5])
+        rows[kernel] = library_row(torch, kernel, case, res["launches"], res["max_err"],
+                                   f"serve {tag}", device_time=kernel == "ssd_chunk")
+        log(f"[serve] {tag} summary on {smi}: {json.dumps(res['stats'])}")
+        del res, args, case
+        torch.cuda.empty_cache()
+    for _, arch, _, _, _ in SERVE_CASES:
+        serve_parity(torch, dev, arch)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2349,8 +2667,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows = timed("phase 6", phase_timing, torch, capture, launches)
     timed("phase 6 (general inputs)", phase_timing_general, torch, general_capture)
-    del general_capture
+    del capture, general_capture
     rows += timed("phase 7", phase_library, torch, dev)
+    # the two LM kernels' rows come from the serve path, their main path
+    served = timed("phase serve", phase_serve, torch, dev, env["smi"])
+    rows = [served.get(row["name"], row) for row in rows]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(f"{env['smi']}")
     print(json.dumps({"kernels": rows}))

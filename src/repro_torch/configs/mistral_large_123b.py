@@ -1,0 +1,20 @@
+"""mistral-large-123b [dense] — 88L d_model=12288 96H (GQA kv=8) d_ff=28672
+vocab=32768 [hf:mistralai/Mistral-Large-Instruct-2407]. Pure full attention →
+long_500k skipped (DESIGN.md §5)."""
+
+from .base import ArchConfig, BlockSpec
+
+CONFIG = ArchConfig(
+    name="mistral-large-123b",
+    family="dense",
+    n_layers=88,
+    d_model=12288,
+    n_heads=96,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=28672,
+    vocab=32768,
+    pattern=(BlockSpec(mixer="attn"),),
+    rope_theta=1e6,
+    sequence_parallel=True,
+)

@@ -1,0 +1,183 @@
+"""Shared layers: norms, rotary embeddings, MLPs, embedding/logits, loss.
+
+Parameters live in :class:`Params` modules whose attribute names are the JAX
+package's dictionary keys (``p.wq`` here is ``p["wq"]`` there), so that
+``models/convert.py`` carries weights across by name. Serving needs no
+gradients: the norms are plain forward functions (the JAX package's custom
+backward passes come with the training path).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(cfg) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+class Init:
+    """Makes a model's tensors on one device: ``init(shape, dtype, std)`` draws
+    normal(0, std) from ``generator``, or, with no generator, returns
+    uninitialised storage for weights copied in afterwards
+    (``convert.params_from_numpy``); :meth:`full` makes constants."""
+
+    def __init__(self, device: torch.device, generator: Optional[torch.Generator] = None):
+        self.device, self.generator = device, generator
+
+    def __call__(self, shape: Tuple[int, ...], dtype: torch.dtype, std: float) -> torch.Tensor:
+        if self.generator is None:
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        return torch.randn(shape, generator=self.generator, dtype=dtype,
+                           device=self.device) * std
+
+    def full(self, shape: Tuple[int, ...], dtype: torch.dtype, value: float) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+
+class Params(nn.Module):
+    """Named tensors (and nested ``Params``) of one layer part, frozen: the
+    serve path builds no autograd graph."""
+
+    def __init__(self, tensors: Dict[str, object]):
+        super().__init__()
+        for name, t in tensors.items():
+            if isinstance(t, nn.Module):
+                self.add_module(name, t)
+            else:
+                self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm scaled by ``1 + scale``: the statistics in fp32, x kept in its dtype."""
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).sum(-1, keepdim=True) / x.shape[-1] + eps)
+    return x * inv.to(x.dtype) * (1.0 + scale).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    d = x.shape[-1]
+    xf = x.float()
+    mu = xf.sum(-1, keepdim=True) / d
+    var = (xf * xf).sum(-1, keepdim=True) / d - mu * mu
+    inv = torch.rsqrt(var + eps)
+    return (x - mu.to(x.dtype)) * inv.to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def apply_norm(cfg, x: torch.Tensor, p: Params) -> torch.Tensor:
+    if cfg.norm == "rms":
+        return rms_norm(x, p.scale)
+    return layer_norm(x, p.scale, p.bias)
+
+
+def norm_params(cfg, init: Init, d: int, dtype) -> Params:
+    if cfg.norm == "rms":
+        return Params({"scale": init.full((d,), dtype, 0.0)})
+    return Params({"scale": init.full((d,), dtype, 1.0), "bias": init.full((d,), dtype, 0.0)})
+
+
+# -- rotary ------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, dim: int,
+                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) int → cos/sin (..., dim/2) float32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D); cos/sin (..., S, D/2) broadcast over heads (half-rotation),
+    computed in fp32."""
+    dt = x.dtype
+    x = x.float()
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(dt)
+
+
+# -- MLP ----------------------------------------------------------------------
+
+
+# The activations follow the JAX package's rounding in low precision op by op (its
+# CPU compiler rounds a bf16 result after every elementwise op, and rounds Python
+# constants to the operand's type), so a bf16 model routes its MoE tokens as the
+# JAX package does. In float32 they equal torch's fused functions to rounding.
+
+
+def _const(c: float, x: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x))."""
+    one = _const(1.0, x)
+    return one / (one + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x · sigmoid(x)."""
+    return x * sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    inner = _const(np.sqrt(2 / np.pi), x) * (x + _const(0.044715, x) * (x * x * x))
+    return x * (_const(0.5, x) * (_const(1.0, x) + torch.tanh(inner)))
+
+
+def mlp_params(cfg, init: Init, d_model: int, d_ff: int, dtype) -> Params:
+    scale = d_model ** -0.5
+    p = {"w_out": init((d_ff, d_model), dtype, d_ff ** -0.5)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_gate"] = init((d_model, d_ff), dtype, scale)
+    p["w_up"] = init((d_model, d_ff), dtype, scale)
+    return Params(p)
+
+
+def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) → (B, S, d)."""
+    if cfg.act in ("swiglu", "geglu"):
+        act = silu if cfg.act == "swiglu" else gelu
+        h = act(x @ p.w_gate) * (x @ p.w_up)
+    else:
+        h = gelu(x @ p.w_up)
+    return h @ p.w_out
+
+
+# -- embedding / logits / loss -------------------------------------------------
+
+
+def embed_params(cfg, init: Init, dtype) -> Params:
+    return Params({"embedding": init((cfg.vocab_padded, cfg.d_model), dtype, 0.02)})
+
+
+def embed_apply(cfg, p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p.embedding[tokens]
+
+
+def logits_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) → (B, S, vocab_padded): the tied embedding, padded columns included."""
+    return x @ p.embedding.T.to(x.dtype)
+
+
+def cross_entropy(cfg, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over all positions; padded vocab ids masked out of the logsumexp."""
+    v = logits.shape[-1]
+    logits = logits.float()
+    iota = torch.arange(v, device=logits.device)
+    logits = torch.where(iota < cfg.vocab, logits, torch.full_like(logits, -1e30))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - picked).mean()
