@@ -122,13 +122,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and the card: a 256-token prompt and 8 greedy steps, logits within
      1e-3 + 1e-3·|CPU| and the same token wherever the CPU's top-2 margin
      allows;
+  train: the LM training path (``repro_torch.train``) at published full width
+     and depth in the configs' bf16 with their own ``remat`` ("nothing"),
+     random weights on the card: h2o-danube-1.8b and mamba2-780m, each 5
+     ``make_train_step`` steps (``launch/train.py``'s schedule, lr 3e-4) on one
+     repeated 4 x 2048 ``synth_batch``, the counts zeroed before each step and
+     read after it (``kernel_calls_per_step``: 48 ``flash_attention`` and 96
+     ``ssd_chunk`` launches a step, the forward run twice), every gradient of
+     the first step finite and not identically zero, finite losses and grad
+     norms, the last loss below the first (cold and warm ms per step,
+     tokens/s, the forward alone (median of 3), the optimizer by CUDA events,
+     the backward by difference, peak device memory, the loss and grad-norm
+     history); one
+     step under torch.profiler (the kernel's, the matmuls' and the rest's
+     shares, the idle share) and one with every kernel call held against its
+     plain version; then each model cut to 2 layers in float32, one step on the
+     card and on the CPU from the same weights (loss, every gradient against
+     its leaf's largest |g| and every fp32 master within 1e-3 + 1e-3·|CPU|),
+     the card's state through a ``CheckpointManager`` save / restore bit for
+     bit; and ``launch/train.py``'s ``main`` on the card (reduced mamba2-780m,
+     a checkpoint, ``--resume``);
   then the ``kernels`` JSON line (six rows).  Phases 3-5 give the join
   kernels' launch counts, on a session that does not verify (the service's
   default), the serve phase those of ``flash_attention`` and ``ssd_chunk``
   (their main path: the two serving runs), and their rows are timed at the
-  serve path's inputs; ``hash_partition``'s row is phase 7's.  Patterns,
-  service, verify, simulator and general run after phases 3-5 (phase 6 and
-  7 follow, then serve).
+  serve path's inputs; the train phase adds to those two rows its launches
+  (``train_launches``, ``train_launches_per_step``) and the checked step's
+  largest |err| (``train_max_abs_err``); ``hash_partition``'s row is phase
+  7's.  Patterns, service, verify, simulator and general run after phases
+  3-5 (phase 6 and 7 follow, then serve, then train).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 
@@ -2385,7 +2407,8 @@ def serve_prefill(torch, cfg, model, batch, cache_len: int):
 
 
 def profile_run(torch, fn, kernel_names: str) -> dict:
-    """``fn()`` once under torch.profiler: the device time, the shares of it spent
+    """``fn()`` once under torch.profiler (``fn`` sets its own grad mode): the
+    device time, the shares of it spent
     in the hand kernel (device functions matching ``kernel_names``) and in matrix
     products, the idle share of the wall clock (profiler overhead included), and
     the eight longest device functions."""
@@ -2395,8 +2418,7 @@ def profile_run(torch, fn, kernel_names: str) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with torch.no_grad():
-            fn()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
@@ -2598,6 +2620,336 @@ def phase_serve(torch, dev, smi: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Training: the LM training path at full width (``repro_torch.train``)
+# ---------------------------------------------------------------------------
+
+#: the train phase's models at their published width and depth, each in its
+#: config's bf16 with its own ``remat`` ("nothing": every repeat of the pattern
+#: runs its forward again in the backward), the kernel its forward runs once per
+#: layer of the mixer named, and that kernel's device functions
+TRAIN_CASES = (("train-danube", "h2o-danube-1.8b", "flash_attention", "attn", r"flash_fwd"),
+               ("train-mamba2", "mamba2-780m", "ssd_chunk", "mamba", r"ssd_"))
+# the load: batch x tokens of one repeated ``synth_batch`` (the serve phase's),
+# steps, and the peak learning rate of ``launch/train.py``'s schedule for that many
+# steps (warmup 2, cosine to 0.1 lr): the drivers' default 3e-4. h2o-danube-1.8b's
+# loss doubles after the update at the peak rate, then falls below its first
+# value within the run; at 1e-3 it stays above it
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 5, 3e-4
+# the card against the CPU: the same models cut to 2 layers in float32, one step
+# of batch 1 x 256; loss, gradients (against each leaf's largest |g|) and masters
+# within 1e-3 + 1e-3·|CPU|
+TRAIN_PARITY_SEQ, TRAIN_PARITY_ADAMW = 256, dict(lr=1e-3, warmup_steps=1, total_steps=10)
+# AdamW's first update is lr·g/(|g| + 1e-8): where a gradient is zero within the
+# gradient limit, the update's size and sign are decided by rounding; at most this
+# share of the elements may leave the masters' limit, and only those
+ROUNDING_DECIDED_MAX = 1e-5
+
+
+def kernel_calls_per_step(cfg, mixer: str) -> int:
+    """Kernel launches of one training step (one microbatch) of a decoder-only
+    config: one per ``mixer`` layer per forward; with ``remat`` other than "none"
+    the repeated pattern's layers run their forward a second time in the backward
+    (the prefix layers are not rematerialised). The backward itself recomputes the
+    plain function and launches no kernel. h2o-danube-1.8b: 24 x 2 = 48
+    ``flash_attention``; mamba2-780m: 48 x 2 = 96 ``ssd_chunk``."""
+    prefix = sum(b.mixer == mixer for b in cfg.prefix)
+    repeated = sum(b.mixer == mixer for b in cfg.pattern) * cfg.n_repeats
+    return prefix + repeated * (1 if cfg.remat == "none" else 2)
+
+
+class GradCheck:
+    """Wraps ``repro_torch.train.step.adamw_update`` while installed: times every
+    call with CUDA events (``opt_ms``) and, on the first call, holds every
+    gradient the step hands the optimizer to be finite and not identically zero
+    (the guard against a kernel route whose output has no ``grad_fn``: the
+    parameters before it would get zeros, or none); with ``keep`` it also keeps a
+    CPU copy of each call's gradients (``grads``)."""
+
+    def __init__(self, torch, tag: str, keep: bool = False):
+        self.torch, self.tag, self.keep = torch, tag, keep
+        self.opt_ms, self.grads, self.checked = [], [], 0
+
+    def __enter__(self):
+        from repro_torch.train import step as step_mod
+
+        self._mod, self._orig = step_mod, step_mod.adamw_update
+        torch = self.torch
+
+        def wrapped(cfg, params, grads, state):
+            if not self.checked:
+                for name, p in params.items():
+                    g = grads.get(name)
+                    if g is None or g.shape != p.shape:
+                        raise AssertionError(f"{self.tag}: {name} has no gradient")
+                    if not bool(torch.isfinite(g).all()):
+                        raise AssertionError(f"{self.tag}: {name}'s gradient is not finite")
+                    if not bool((g != 0).any()):
+                        raise AssertionError(f"{self.tag}: {name}'s gradient is identically 0")
+                self.checked = len(params)
+            if self.keep:
+                self.grads.append({k: g.detach().float().cpu() for k, g in grads.items()})
+            on_card = next(iter(params.values())).is_cuda
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            out = self._orig(cfg, params, grads, state)
+            if on_card:
+                end.record()
+                end.synchronize()
+                self.opt_ms.append(start.elapsed_time(end))
+            return out
+
+        step_mod.adamw_update = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.adamw_update = self._orig
+        return False
+
+
+def train_model(torch, dev, tag: str, arch: str, kernel: str, mixer: str,
+                kernel_names: str, smi: str) -> dict:
+    """One model at its published width and depth, random weights from a seeded
+    generator on the card, TRAIN_STEPS steps of ``make_train_step`` on one
+    repeated TRAIN_BATCH x TRAIN_SEQ batch (the counts zeroed just before each
+    step and read just after: exactly ``kernel_calls_per_step`` launches); every
+    gradient of the first step finite and not identically zero; finite losses and
+    grad norms, the last loss below the first; then the forward timed alone (the
+    median of three), one step under torch.profiler and one with every kernel
+    call held against its plain version."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_arch(arch)
+    per_step = kernel_calls_per_step(cfg, mixer)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()          # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    # launch/train.py's schedule for --steps TRAIN_STEPS --lr TRAIN_LR
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, TRAIN_STEPS // 20),
+                                         total_steps=TRAIN_STEPS))
+    state = init_train_state(cfg, tcfg, model)
+    step_fn = make_train_step(cfg, tcfg)
+    raw = synth_batch(cfg, step=0, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    torch.cuda.synchronize()
+    state_gib = (torch.cuda.memory_allocated() - held) / 2**30
+    log(f"[train] {tag}: {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, "
+        f"remat {cfg.remat!r}, {n_params:,} parameters; weights and optimizer state "
+        f"{state_gib:.3f} GiB on the card; {kernel} expected {per_step} times a step")
+
+    history, step_ms = [], []
+    with GradCheck(torch, tag) as grad_check:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            model, state, metrics = step_fn(model, state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            n = launch_counts([kernel])[kernel]
+            if n != per_step:
+                raise AssertionError(f"{tag}: step {i} launched {kernel} {n} times, want "
+                                     f"{per_step}")
+            history.append({k: float(metrics[k]) for k in ("loss", "ce", "grad_norm", "lr")})
+    if grad_check.checked != len(list(model.parameters())):
+        raise AssertionError(f"{tag}: the first step's gradients were not checked")
+    losses = [h["loss"] for h in history]
+    if not all(np.isfinite([h[k] for h in history for k in ("loss", "grad_norm")])):
+        raise AssertionError(f"{tag}: a loss or grad norm is not finite: {history}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: the loss did not fall on the repeated batch: {losses}")
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    warm_ms = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    opt_ms = float(np.median(grad_check.opt_ms[1:]))
+
+    fwd_runs = []                   # the forward alone, graph kept; a median of 3
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = loss_fn(cfg, model, batch)
+        torch.cuda.synchronize()
+        fwd_runs.append((time.perf_counter() - t0) * 1e3)
+        del loss
+    fwd_ms = float(np.median(fwd_runs))
+    bwd_ms = warm_ms - fwd_ms - opt_ms
+    stats = {"cold_step_ms": step_ms[0], "warm_ms_per_step": warm_ms,
+             "tokens_per_s": tokens / warm_ms * 1e3, "peak_gib": peak_gib,
+             "state_gib": state_gib, "launches_per_step": per_step,
+             "forward_ms": fwd_ms, "optimizer_ms": opt_ms, "backward_ms": bwd_ms,
+             "backward_share": bwd_ms / warm_ms, "lr": TRAIN_LR,
+             "loss": losses, "grad_norm": [h["grad_norm"] for h in history]}
+    log(f"[train] {tag} on {smi}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"cold {step_ms[0]:.1f} ms, warm {warm_ms:.1f} ms a step "
+        f"({stats['tokens_per_s']:,.0f} tokens/s; steps {[round(t, 1) for t in step_ms]}); "
+        f"forward alone {fwd_ms:.1f} ms (median of {[round(t, 1) for t in fwd_runs]}), "
+        f"optimizer {opt_ms:.1f} ms (CUDA events), backward "
+        f"{bwd_ms:.1f} ms by difference ({stats['backward_share']:.3f} of the step); peak "
+        f"device memory {peak_gib:.3f} GiB above the {held / 2**30:.3f} GiB held before; "
+        f"{kernel} {per_step} launches every step; every gradient of step 0 finite and "
+        f"nonzero ({grad_check.checked} tensors); lr {TRAIN_LR}; history {json.dumps(history)}")
+
+    prof = profile_run(torch, lambda: step_fn(model, state, batch), kernel_names)
+    stats.update({"kernel_share": prof["kernel_share"], "matmul_share": prof["matmul_share"],
+                  "other_share": prof["other_share"], "idle_share": prof["idle_share"],
+                  "step_device_ms": prof["device_ms"]})
+    log(f"[train] {tag}: one profiled warm step on {smi}: {json.dumps(prof)}")
+
+    with InputCapture(check=True, kernels=(kernel,)) as checker:
+        step_fn(model, state, batch)
+        torch.cuda.synchronize()
+    if checker.checked.get(kernel, 0) != per_step:
+        raise AssertionError(f"{tag}: the checked step held {checker.checked} calls, "
+                             f"want {per_step}")
+    log(f"[train] {tag}: checked step, {checker.checked[kernel]} {kernel} calls at "
+        f"{checker.largest[kernel][1]} each within their limit of the plain version, "
+        f"max |err| {checker.max_err[kernel]:.4g}")
+    del model, state, batch, step_fn
+    torch.cuda.empty_cache()
+    return {"launches": per_step * TRAIN_STEPS, "per_step": per_step,
+            "max_err": checker.max_err[kernel], "stats": stats}
+
+
+def train_parity(torch, dev, arch: str) -> dict:
+    """The card against the CPU at full width, depth cut to PARITY_LAYERS, in
+    float32 (TF32 off): the same weights (drawn on the CPU, then copied), one
+    ``make_train_step`` on one TRAIN_PARITY_SEQ-token row. The loss, every gradient
+    (within PARITY_TOL of its leaf's largest |g| + PARITY_TOL·|g|) and every
+    updated fp32 master within PARITY_TOL + PARITY_TOL·|CPU| (rounding-decided
+    elements counted, at most ROUNDING_DECIDED_MAX of them); then the card's state
+    through a ``CheckpointManager`` save / restore (and an async save), bit for bit,
+    on the card's device and in each leaf's dtype."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import init_params
+    from repro_torch.train.checkpoint import CheckpointManager, named_leaves
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+
+    cfg = replace(get_arch(arch), n_layers=PARITY_LAYERS, dtype="float32")
+    cpu_model = init_params(cfg, seed=1, device="cpu")
+    card = copy.deepcopy(cpu_model).to(dev)
+    tcfg = TrainConfig(adamw=AdamWConfig(**TRAIN_PARITY_ADAMW))
+    step_fn = make_train_step(cfg, tcfg)
+    raw = synth_batch(cfg, step=1, global_batch=1, seq=TRAIN_PARITY_SEQ)
+    out = {}
+    runs = {}
+    for side, model, device in (("cpu", cpu_model, "cpu"), ("card", card, dev)):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+        state = init_train_state(cfg, tcfg, model)
+        with GradCheck(torch, f"parity {arch} {side}", keep=True) as gc:
+            model, state, metrics = step_fn(model, state, batch)
+        runs[side] = (model, state, metrics, gc.grads[0])
+    cpu_m, card_m = runs["cpu"][2], runs["card"][2]
+    for k in ("loss", "ce", "grad_norm"):
+        want, got = float(cpu_m[k]), float(card_m[k])
+        if not abs(got - want) <= PARITY_TOL + PARITY_TOL * abs(want):
+            raise AssertionError(f"train parity {arch}: {k} {got} on the card, {want} on the CPU")
+    want_g, got_g = runs["cpu"][3], runs["card"][3]
+    worst_g = 0.0
+    for k, w in want_g.items():
+        scale = float(w.abs().max())
+        err = (got_g[k] - w).abs()
+        if bool((err > PARITY_TOL * scale + PARITY_TOL * w.abs()).any()):
+            raise AssertionError(f"train parity {arch}: gradient {k} differs by {float(err.max())}"
+                                 f" (leaf max {scale})")
+        worst_g = max(worst_g, float(err.max()) / max(scale, 1e-30))
+    worst_m, excused, total = 0.0, 0, 0
+    for k, w in runs["cpu"][1]["adamw"]["master"].items():
+        got = runs["card"][1]["adamw"]["master"][k].cpu()
+        err = (got - w).abs()
+        outside = err > PARITY_TOL + PARITY_TOL * w.abs()
+        excused += int(outside.sum())
+        total += w.numel()
+        g = want_g[k].abs()
+        decided = g <= PARITY_TOL * float(g.max())     # the update decided by rounding
+        if bool((outside & ~decided).any()):
+            raise AssertionError(f"train parity {arch}: master {k} differs by {float(err.max())}")
+        worst_m = max(worst_m, float(err[~outside].max()) if bool((~outside).any()) else 0.0)
+    if excused > ROUNDING_DECIDED_MAX * total:
+        raise AssertionError(f"train parity {arch}: {excused} of {total} masters outside the "
+                             "limit where the update is decided by rounding")
+    out.update(loss_cpu=float(cpu_m["loss"]), loss_card=float(card_m["loss"]),
+               grad_err_over_leaf_max=worst_g, master_max_abs_err=worst_m,
+               rounding_decided_outside=excused, params=total)
+
+    model, state = runs["card"][0], runs["card"][1]
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        template = {"params": model, "opt": state}
+        mgr.save_async(0, template, {"arch": cfg.name})
+        mgr.wait()
+        mgr.save(1, template, {"arch": cfg.name})
+        if sorted(mgr.all_steps()) != [1] or mgr.latest_step() != 1:
+            raise AssertionError(f"checkpoint {arch}: steps {mgr.all_steps()}")
+        restored, meta = mgr.restore(1, template)
+    pairs = list(zip(named_leaves(template), named_leaves(restored)))
+    for (ka, a), (kb, b) in pairs:
+        if ka != kb or a.device != b.device or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"checkpoint {arch}: {ka} not restored bit for bit")
+    out["checkpoint_leaves"] = len(pairs)
+    log(f"[train] parity {arch}, {PARITY_LAYERS} layers, float32, 1 x {TRAIN_PARITY_SEQ} "
+        f"tokens, one step, card against CPU: {json.dumps(out)} (limit {PARITY_TOL} + "
+        f"{PARITY_TOL}·|CPU|); checkpoint round trip on the card bit for bit over "
+        f"{len(pairs)} leaves, step {meta['step']}")
+    del runs, model, state, restored, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_driver(torch) -> None:
+    """``launch/train.py``'s ``main`` on the card, reduced mamba2-780m: 4 steps with
+    a checkpoint every 2, then ``--resume`` with 6: exactly 2 more steps, every
+    loss finite, ``ssd_chunk`` launched once per Mamba layer per step."""
+    import tempfile
+
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.launch.train import main as train_main
+
+    cfg = reduced_for_smoke(get_arch("mamba2-780m"))
+    per_step = kernel_calls_per_step(cfg, "mamba")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--arch", "mamba2-780m", "--reduced", "--steps", "4", "--global-batch", "2",
+                "--seq", "32", "--ckpt-dir", tmp, "--ckpt-every", "2", "--log-every", "10"]
+        reset_counts()
+        first = train_main(args)
+        second = train_main([a if a != "4" else "6" for a in args] + ["--resume"])
+        n = launch_counts(["ssd_chunk"])["ssd_chunk"]
+    if (len(first["history"]) != 4 or len(second["history"]) != 2
+            or not np.isfinite(first["history"] + second["history"]).all()
+            or n != 6 * per_step):
+        raise AssertionError(f"train driver: {first}, {second}, {n} ssd_chunk launches")
+    log(f"[train] driver on the card: reduced mamba2-780m, losses {first['history']} then "
+        f"{second['history']} after --resume; {n} ssd_chunk launches")
+
+
+def phase_train(torch, dev, smi: str) -> dict:
+    """The train phase: each of TRAIN_CASES at full width and depth
+    (``train_model``), then each model's depth-cut card-against-CPU training step
+    and checkpoint round trip, then the driver on the card → by kernel name, the
+    train path's launches."""
+    runs = {}
+    for tag, arch, kernel, mixer, names in TRAIN_CASES:
+        res = train_model(torch, dev, tag, arch, kernel, mixer, names, smi)
+        log(f"[train] {tag} summary on {smi}: {json.dumps(res['stats'])}")
+        runs[kernel] = res
+    for _, arch, _, _, _ in TRAIN_CASES:
+        train_parity(torch, dev, arch)
+    train_driver(torch)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2672,6 +3024,13 @@ def main(argv=None) -> int:
     # the two LM kernels' rows come from the serve path, their main path
     served = timed("phase serve", phase_serve, torch, dev, env["smi"])
     rows = [served.get(row["name"], row) for row in rows]
+    trained = timed("phase train", phase_train, torch, dev, env["smi"])
+    for row in rows:
+        run = trained.get(row["name"])
+        if run is not None:
+            row["train_launches"] = run["launches"]
+            row["train_launches_per_step"] = run["per_step"]
+            row["train_max_abs_err"] = run["max_err"]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(f"{env['smi']}")
     print(json.dumps({"kernels": rows}))

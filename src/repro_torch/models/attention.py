@@ -5,8 +5,9 @@ Train/prefill attention goes to the port's ``flash_attention`` kernel wherever t
 kernel computes the span exactly (:func:`_flash_eligible`, a rule of shapes and
 config alone); everything else (MLA, whose key and value widths differ, and
 sliding windows shorter than the sequence) runs :func:`chunked_attention`, the
-twin of the JAX package's q-chunked attention with static KV spans. Decode
-attends to the cache in plain PyTorch.
+twin of the JAX package's q-chunked attention with static KV spans. The kernel
+route is differentiable: its backward recomputes :func:`chunked_attention`.
+Decode attends to the cache in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.flash_attention import HEAD_DIMS
-from .layers import Init, Params, apply_rope, rope_cos_sin
+from .layers import Init, Params, apply_rope, recompute_grads, rope_cos_sin
 
 
 def _attn_chunk(q, k, v, bias):
@@ -95,16 +96,43 @@ def _to_bhsd(x: torch.Tensor, rep: int) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
 
 
-def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool) -> torch.Tensor:
-    """q (B,Sq,H,D), k/v (B,Sk,KV,D) → (B,Sq,H,D) through ``ops.flash_attention``
-    (one call; its block contract is the whole span: ``bq=Sq``, ``bk=Sk``)."""
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """One ``ops.flash_attention`` call over the model's layout (its block
+    contract is the whole span: ``bq=Sq``, ``bk=Sk``)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     rep = h // k.shape[2]
     out = ops.flash_attention(_to_bhsd(q, 1), _to_bhsd(k, rep), _to_bhsd(v, rep),
                               causal=causal, bq=sq, bk=sk)
     return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+
+
+class _FlashAttn(torch.autograd.Function):
+    """The forward on ``ops.flash_attention`` (the kernel on the card, its plain
+    version on the CPU). The backward recomputes :func:`chunked_attention` over
+    the full span and takes its gradient: the function the JAX package
+    differentiates, with XLA, outside any kernel (it has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal = ctx.causal
+        grads = recompute_grads(lambda q, k, v: chunked_attention(q, k, v, causal=causal),
+                                ctx.saved_tensors, ctx.needs_input_grad[:3], (g,))
+        return grads + (None,)
+
+
+def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool) -> torch.Tensor:
+    """q (B,Sq,H,D), k/v (B,Sk,KV,D) → (B,Sq,H,D) through ``ops.flash_attention``,
+    differentiable (:class:`_FlashAttn`)."""
+    return _FlashAttn.apply(q, k, v, causal)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,

@@ -4,7 +4,7 @@ The JAX package keeps a tree of arrays: ``prefix`` blocks as a list, the pattern
 blocks stacked over repeats (``blocks["pos{i}"]``, leading dim R), the whisper
 encoder's blocks stacked likewise. The port holds one module (and one cache
 dict) per layer, in layer order: layer ``len(prefix) + r·P + i`` is repeat ``r``
-of pattern position ``i``. Both functions take the tree with numpy leaves; bf16
+of pattern position ``i``. The functions take the tree with numpy leaves; bf16
 leaves must be upcast to float32 first (``np.asarray(a, np.float32)``), and are
 cast back to the model's dtype here, which is exact.
 """
@@ -52,11 +52,10 @@ def _as_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
-def params_from_numpy(cfg, tree: Dict[str, Any], device=None) -> Model:
-    """The JAX package's parameter tree (numpy leaves) → the port's model on
-    ``device`` (the card unless the caller names another)."""
-    dev = resolve_device(device)
-    model = Model(cfg, Init(dev))
+def by_name(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A tree shaped like the JAX package's parameters (the parameters, their
+    gradients, the optimizer's masters or moments; numpy leaves) → {the port's
+    parameter name: leaf}, so that port and reference values compare by name."""
     flat = {"embed": tree["embed"], "final_norm": tree["final_norm"],
             "layers": {str(j): t for j, t in
                        enumerate(layer_trees(cfg, tree["prefix"], tree["blocks"]))}}
@@ -65,8 +64,16 @@ def params_from_numpy(cfg, tree: Dict[str, Any], device=None) -> Model:
         flat["encoder"] = {
             "layers": {str(r): t for r, t in enumerate(_unstack(enc["blocks"], cfg.n_enc_layers))},
             "final_norm": enc["final_norm"]}
+    return dict(_flatten(flat, ""))
+
+
+def params_from_numpy(cfg, tree: Dict[str, Any], device=None) -> Model:
+    """The JAX package's parameter tree (numpy leaves) → the port's model on
+    ``device`` (the card unless the caller names another)."""
+    dev = resolve_device(device)
+    model = Model(cfg, Init(dev))
     named = dict(model.named_parameters())
-    given = dict(_flatten(flat, ""))
+    given = by_name(cfg, tree)
     if set(given) != set(named):
         raise ValueError(f"parameter trees differ: missing {sorted(set(named) - set(given))}, "
                          f"unexpected {sorted(set(given) - set(named))}")

@@ -2,9 +2,10 @@
 
 Parameters live in :class:`Params` modules whose attribute names are the JAX
 package's dictionary keys (``p.wq`` here is ``p["wq"]`` there), so that
-``models/convert.py`` carries weights across by name. Serving needs no
-gradients: the norms are plain forward functions (the JAX package's custom
-backward passes come with the training path).
+``models/convert.py`` carries weights across by name. The parameters are
+created frozen (serving builds no autograd graph); the training step turns
+their gradients on. RMSNorm and the per-block bf16 gradient barrier carry the
+JAX package's custom backward passes as ``torch.autograd.Function`` classes.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ class Init:
 
 
 class Params(nn.Module):
-    """Named tensors (and nested ``Params``) of one layer part, frozen: the
-    serve path builds no autograd graph."""
+    """Named tensors (and nested ``Params``) of one layer part, created frozen:
+    the serve path builds no autograd graph (the training step turns the
+    gradients on)."""
 
     def __init__(self, tensors: Dict[str, object]):
         super().__init__()
@@ -54,11 +56,78 @@ class Params(nn.Module):
                 self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm scaled by ``1 + scale``: the statistics in fp32, x kept in its dtype."""
+class _Bf16Barrier(torch.autograd.Function):
+    """Identity forward; the backward casts the gradient to bf16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def grad_dtype_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; casts a bf16 tensor's gradient to bf16 on the way back
+    (the JAX package's per-block cap on fp32 cotangent contagion). PyTorch's
+    engine already hands every tensor a gradient of its own dtype, so this keeps
+    the reference's structure rather than changing a value."""
+    if x.dtype != torch.bfloat16:
+        return x
+    return _Bf16Barrier.apply(x)
+
+
+def recompute_grads(fn, inputs, needs, grads_out):
+    """The gradient of ``fn(*inputs)`` (a tensor or a tuple) against the outputs'
+    gradients ``grads_out`` (None for an output that got none), for the inputs
+    whose ``needs`` flag is set: ``fn`` runs again under ``torch.enable_grad()``
+    on detached copies of the inputs → one gradient or None per input."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+        wanted = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                       allow_unused=True))
+    return tuple(next(got) if t.requires_grad else None for t in leaves)
+
+
+def _rms_inv(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(…, 1) fp32 inverse RMS of x."""
     xf = x.float()
-    inv = torch.rsqrt((xf * xf).sum(-1, keepdim=True) / x.shape[-1] + eps)
-    return x * inv.to(x.dtype) * (1.0 + scale).to(x.dtype)
+    return torch.rsqrt((xf * xf).sum(-1, keepdim=True) / x.shape[-1] + eps)
+
+
+class _RmsCore(torch.autograd.Function):
+    """RMSNorm with the JAX package's closed-form backward in the stream dtype:
+    d_x = s·inv·g − x·inv³·⟨s·g, x⟩/d, fp32 only for the (…, 1) statistics and
+    the scale gradient (summed over every batch dim in fp32)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        inv = _rms_inv(x, eps)
+        ctx.save_for_backward(x, inv, scale)
+        return x * inv.to(x.dtype) * (1.0 + scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, inv, scale = ctx.saved_tensors
+        d = x.shape[-1]
+        gy = g.to(x.dtype) * (1.0 + scale).to(x.dtype)
+        dot = (gy.float() * x.float()).sum(-1, keepdim=True)
+        coef = inv ** 3 * (dot / d)
+        d_x = gy * inv.to(x.dtype) - x * coef.to(x.dtype)
+        xin = x * inv.to(x.dtype)
+        d_scale = (g.float() * xin.float()).reshape(-1, d).sum(0).to(scale.dtype)
+        return d_x, d_scale, None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm scaled by ``1 + scale``: the statistics in fp32, x kept in its
+    dtype, and the custom backward of :class:`_RmsCore`."""
+    return _RmsCore.apply(x, scale, eps)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -72,9 +141,10 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def apply_norm(cfg, x: torch.Tensor, p: Params) -> torch.Tensor:
+    """The config's norm, its output behind :func:`grad_dtype_barrier`."""
     if cfg.norm == "rms":
-        return rms_norm(x, p.scale)
-    return layer_norm(x, p.scale, p.bias)
+        return grad_dtype_barrier(rms_norm(x, p.scale))
+    return grad_dtype_barrier(layer_norm(x, p.scale, p.bias))
 
 
 def norm_params(cfg, init: Init, d: int, dtype) -> Params:

@@ -6,7 +6,8 @@ matmul, across chunks a scan carries the (H, P, N) state. Both start from a zero
 state, which is the kernel's. The kernel computes in fp32: in a bf16 model the
 port is the more exact side against the JAX package's ``ssd_chunked``, whose
 einsums round their inputs to bf16. :func:`ssd_reference` is the per-token
-recurrence, kept as the tests' oracle.
+recurrence, kept as the tests' oracle. The kernel route is differentiable: its
+backward recomputes :func:`ssd_chunked_matmul`, the JAX package's matmul form.
 
 The depthwise causal conv is applied separately to the x / B / C streams.
 
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import Init, Params, rms_norm, silu
+from .layers import Init, Params, recompute_grads, rms_norm, silu
 
 
 def mamba_params(cfg, init: Init, dtype) -> Params:
@@ -78,11 +79,9 @@ def ssd_chunk_len(chunk: int, s: int) -> int:
     return q
 
 
-def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: torch.Tensor,
-                c_ssm: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan from a zero state through ``ops.ssd_chunk``: x (B,S,H,P),
-    dt (B,S,H) fp32, a (H,), b/c (B,S,G,N) → (y (B,S,H,P), final_state (B,H,P,N))
-    in x's dtype. Head h reads group h // (H/G)."""
+def _ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: torch.Tensor,
+                 c_ssm: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``ops.ssd_chunk`` call over the model's layout (heads first, fp32)."""
     bsz, s, h, pdim = x.shape
     g = b_ssm.shape[2]
 
@@ -99,6 +98,93 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: torch
     y = y.reshape(bsz, h, s, pdim).permute(0, 2, 1, 3)
     state = state.reshape(bsz, h, pdim, -1)
     return y.to(x.dtype), state.to(x.dtype)
+
+
+def ssd_chunked_matmul(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b_ssm: torch.Tensor, c_ssm: torch.Tensor,
+                       chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's matmul-form chunked SSD from a zero state, in PyTorch ops
+    (the function its training differentiates, and :func:`ssd_chunked`'s
+    backward recomputes): the intra-chunk part as masked, decayed products, the
+    chunk summaries, the inter-chunk recurrence (here a loop over the chunks,
+    there an associative scan) and the inter-chunk outputs. The einsums take
+    their operands in x's dtype, as there. → (y (B,S,H,P), final_state
+    (B,H,P,N)) in x's dtype."""
+    bsz, s, h, pdim = x.shape
+    g, n = b_ssm.shape[2], b_ssm.shape[3]
+    q = ssd_chunk_len(chunk, s)
+    nc = s // q
+    rep = h // g
+
+    xq = x.reshape(bsz, nc, q, h, pdim)
+    dtq = dt.reshape(bsz, nc, q, h)
+    bq = b_ssm.reshape(bsz, nc, q, g, n)
+    cq = c_ssm.reshape(bsz, nc, q, g, n)
+
+    cum = torch.cumsum(dtq * a[None, None, None, :], dim=2)   # (B,nc,Q,H) fp32, ≤ 0
+    seg_sum = cum[:, :, -1, :]                                 # (B,nc,H)
+    # decay L[i,j] = exp(cum_i - cum_j) for i ≥ j, masked before the exp
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,nc,Q,Q,H)
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    decay = torch.exp(torch.where(mask, li, torch.full_like(li, float("-inf"))))
+
+    # heads factor as H = G groups × R heads per group; B̃/C stay per group
+    xg = xq.reshape(bsz, nc, q, g, rep, pdim)
+    dtg = dtq.reshape(bsz, nc, q, g, rep)
+    cb = torch.einsum("bcign,bcjgn->bcijg", cq.float(), bq.float())
+    w_ij = (cb[..., None] * decay.reshape(bsz, nc, q, q, g, rep)
+            * dtg[:, :, None, :, :, :])                        # (B,nc,Q,Q,G,R)
+    y_diag = torch.einsum("bcijgr,bcjgrp->bcigrp", w_ij.to(x.dtype), xg)
+
+    # chunk summaries S_c = Σ_j exp(seg - cum_j) dt_j B_j ⊗ x_j
+    wdt = (torch.exp(seg_sum[:, :, None, :] - cum) * dtq).reshape(bsz, nc, q, g, rep)
+    s_c = torch.einsum("bcjgr,bcjgn,bcjgrp->bcgrpn", wdt.to(x.dtype), bq,
+                       xg).reshape(bsz, nc, h, pdim, n)
+
+    # the state entering chunk c: states[c] = exp(seg_{c-1})·states[c-1] + S_{c-1}
+    gamma = torch.exp(seg_sum)                                 # (B,nc,H)
+    state = torch.zeros((bsz, h, pdim, n), dtype=s_c.dtype, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = s_c[:, c] + state * gamma[:, c][..., None, None].to(state.dtype)
+    prev_g = torch.stack(prev, dim=1).reshape(bsz, nc, g, rep, pdim, n)
+
+    # inter-chunk contribution y[i] += C_i · exp(cum_i) · prev_state
+    decay_head = torch.exp(cum).reshape(bsz, nc, q, g, rep)
+    y_off = torch.einsum("bcign,bcigr,bcgrpn->bcigrp", cq.to(x.dtype),
+                         decay_head.to(x.dtype), prev_g)
+    return (y_diag + y_off).reshape(bsz, s, h, pdim), state
+
+
+class _SsdChunk(torch.autograd.Function):
+    """The forward on ``ops.ssd_chunk`` (the kernel on the card, its plain
+    version on the CPU). The backward recomputes :func:`ssd_chunked_matmul` and
+    takes its gradient: the function the JAX package differentiates, with XLA,
+    outside any kernel (it has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_ssm, c_ssm, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b_ssm, c_ssm)
+        return _ssd_forward(x, dt, a, b_ssm, c_ssm, chunk)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        chunk = ctx.chunk
+        grads = recompute_grads(lambda *t: ssd_chunked_matmul(*t, chunk), ctx.saved_tensors,
+                                ctx.needs_input_grad[:5], (g_y, g_state))
+        return grads + (None,)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: torch.Tensor,
+                c_ssm: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan from a zero state through ``ops.ssd_chunk``: x (B,S,H,P),
+    dt (B,S,H) fp32, a (H,), b/c (B,S,G,N) → (y (B,S,H,P), final_state (B,H,P,N))
+    in x's dtype. Head h reads group h // (H/G). Differentiable
+    (:class:`_SsdChunk`)."""
+    return _SsdChunk.apply(x, dt, a, b_ssm, c_ssm, chunk)
 
 
 def ssd_reference(x, dt, a, b_ssm, c_ssm):

@@ -14,10 +14,13 @@ carry self-attn + cross-attn (cross K/V computed at prefill).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import BlockSpec
 from ..device import resolve_device
@@ -38,6 +41,7 @@ from .layers import (
     cross_entropy,
     embed_apply,
     embed_params,
+    grad_dtype_barrier,
     logits_apply,
     mlp_apply,
     mlp_params,
@@ -151,7 +155,32 @@ def _block_apply(cfg, spec, p: Block, x, positions, *, causal: bool = True, enc_
         else:
             h = mlp_apply(cfg, p.ffn, h)
         x = x + h
-    return x, aux
+    return grad_dtype_barrier(x), aux      # caps fp32 gradient contagion per block
+
+
+#: the matrix products whose outputs ``remat="dots"`` keeps (the twin of
+#: ``jax.checkpoint_policies.checkpoint_dots``); every other op is recomputed
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_call(cfg, fn, *args):
+    """``fn(*args)`` under the config's rematerialisation while gradients are
+    recorded (the JAX package's ``_remat_wrap``): ``"none"`` keeps every
+    activation; ``"nothing"`` keeps only ``fn``'s inputs and runs ``fn``'s forward
+    again in the backward; ``"dots"`` keeps the matrix products' outputs too."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=partial(create_selective_checkpoint_contexts, _dots_policy))
+    if cfg.remat == "nothing":
+        return checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
 def _positions(n: int, device) -> torch.Tensor:
@@ -164,7 +193,8 @@ def _run_encoder(cfg, params: Model, frames: torch.Tensor) -> torch.Tensor:
     positions = _positions(frames.shape[1], x.device)
     enc = params.encoder
     for layer in enc.layers:
-        x, _ = _block_apply(cfg, ENCODER_SPEC, layer, x, positions, causal=False)
+        x, _ = _remat_call(cfg, partial(_block_apply, cfg, ENCODER_SPEC, layer, causal=False),
+                           x, positions)
     return apply_norm(cfg, x, enc.final_norm)
 
 
@@ -188,17 +218,32 @@ def model_forward(cfg, params: Model, batch) -> Tuple[torch.Tensor, torch.Tensor
     x, positions = _embed_input(cfg, params, batch)
     enc_out, enc_positions = _encode(cfg, params, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params.layers:
+    n_pre, period = len(cfg.prefix), len(cfg.pattern)
+    for layer in params.layers[:n_pre]:
         x, aux = _block_apply(cfg, layer.spec, layer, x, positions, enc_out=enc_out,
                               enc_positions=enc_positions)
         aux_total = aux_total + aux
+
+    def repeat(group, x, enc_out):
+        aux_step = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in group:
+            x, aux = _block_apply(cfg, layer.spec, layer, x, positions, enc_out=enc_out,
+                                  enc_positions=enc_positions)
+            aux_step = aux_step + aux
+        return x, aux_step
+
+    # one rematerialised region per repeat of the pattern (the JAX package's scan body)
+    for r in range(cfg.n_repeats):
+        group = params.layers[n_pre + r * period:n_pre + (r + 1) * period]
+        x, aux_step = _remat_call(cfg, partial(repeat, group), x, enc_out)
+        aux_total = aux_total + aux_step
     x = apply_norm(cfg, x, params.final_norm)
     return logits_apply(cfg, params.embed, x), aux_total
 
 
 def loss_fn(cfg, params: Model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE on the text region (frontend prefix positions excluded) plus
-    0.01 × the MoE aux loss: the value only."""
+    0.01 × the MoE aux loss → (loss, {"loss", "ce", "aux"}); differentiable."""
     logits, aux = model_forward(cfg, params, batch)
     s_text = batch["labels"].shape[1]
     logits_text = logits[:, -s_text:, :]

@@ -1,10 +1,10 @@
-"""Drainer supervision: straggler detection and heartbeats.
+"""Supervision: straggler detection, heartbeats, bounded retries.
 
-A join session's drainer thread records every drain batch's duration in a
-:class:`StragglerMonitor` (a batch slower than ``factor ×`` the running EMA
-is a straggler event) and, when asked, touches a :class:`Heartbeat` file
-before each batch, so an external watchdog can tell a wedged session from a
-busy one.
+A join session's drainer thread, and the training driver's step loop, record
+every batch's or step's duration in a :class:`StragglerMonitor` (one slower than
+``factor ×`` the running EMA is a straggler event) and touch a :class:`Heartbeat`
+file, so an external watchdog can tell a wedged process from a busy one;
+:func:`retry` bounds retries of transient host-side failures (checkpoint I/O).
 """
 
 from __future__ import annotations
@@ -73,3 +73,18 @@ class Heartbeat:
         if not self.path.exists():
             return None
         return time.time() - self.path.stat().st_mtime
+
+
+def retry(fn: Callable, attempts: int = 3, backoff_s: float = 1.0,
+          retriable=(OSError, IOError)):
+    """Bounded retry for transient host-side failures (checkpoint I/O, RPC):
+    ``fn()`` up to ``attempts`` times, sleeping ``backoff_s · 2^i`` after the
+    i-th failure; re-raises the last one."""
+    last = None
+    for i in range(attempts):
+        try:
+            return fn()
+        except retriable as e:  # noqa: PERF203
+            last = e
+            time.sleep(backoff_s * (2 ** i))
+    raise last
