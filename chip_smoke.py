@@ -142,15 +142,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the card's state through a ``CheckpointManager`` save / restore bit for
      bit; and ``launch/train.py``'s ``main`` on the card (reduced mamba2-780m,
      a checkpoint, ``--resume``);
+  mesh: the mesh layer (``repro_torch.distributed``, ``dataplane/decode_attn``,
+     ``train/{grad_sync,pipeline}``, the "a2a" MoE dispatch) on a virtual mesh
+     held on the card, each mesh axis a leading tensor dim: deepseek-moe-16b at
+     published width and depth in bf16, random weights on the card, served
+     through "a2a" on a (data 1, model 16) mesh (a cold and a warm prefill of
+     2 x 2048 ``synth_batch`` tokens, 16 greedy steps; 28 ``flash_attention``
+     launches per prefill at D = 128, one capacity pack per MoE layer, the
+     dropped share of (token, k) entries at cf 1.25, peak memory, a checked
+     prefill, the same warm prefill through "loop"); the same model cut to 2
+     layers in float32, card against CPU through "a2a" at cf 1.25 (routing
+     replayed) and both against "loop" at a dropless cf, within 1e-3 +
+     1e-3·|CPU|; split-KV decode at h2o-danube-1.8b's decode widths against
+     its single-device oracle within a bf16 rounding limit; the hierarchical
+     mean over mamba2-780m's parameter shapes x 4 distinct float32 replicas
+     on (pod 2, data 2) against a plain mean, timed against its bytes bound;
+     GPipe over h2o-danube-1.8b's 24 layers as 4 stages x 6, 4 microbatches of
+     1 x 2048, against the serial forward (bit-equal or the bf16 limit, logged);
+     and deepseek-moe-16b's bytes per device under ``param_pspecs`` on both
+     production meshes (host arithmetic);
   then the ``kernels`` JSON line (six rows).  Phases 3-5 give the join
   kernels' launch counts, on a session that does not verify (the service's
   default), the serve phase those of ``flash_attention`` and ``ssd_chunk``
   (their main path: the two serving runs), and their rows are timed at the
   serve path's inputs; the train phase adds to those two rows its launches
   (``train_launches``, ``train_launches_per_step``) and the checked step's
-  largest |err| (``train_max_abs_err``); ``hash_partition``'s row is phase
-  7's.  Patterns, service, verify, simulator and general run after phases
-  3-5 (phase 6 and 7 follow, then serve, then train).
+  largest |err| (``train_max_abs_err``), the mesh phase its deepseek serving
+  run's ``flash_attention`` launches (``mesh_launches``); ``hash_partition``'s
+  row is phase 7's.  Patterns, service, verify, simulator and general run after phases
+  3-5 (phase 6 and 7 follow, then serve, then train, then mesh).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 
@@ -167,6 +187,7 @@ import argparse
 import copy
 import importlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2950,6 +2971,497 @@ def phase_train(torch, dev, smi: str) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The mesh layer on a virtual mesh held on the card (``repro_torch.distributed``)
+# ---------------------------------------------------------------------------
+
+#: deepseek-moe-16b (src/repro_torch/configs/deepseek_moe_16b.py) at full width
+#: and depth in bf16, served through the "a2a" MoE dispatch on a virtual
+#: (data 1, model 16) mesh: the production model axis. 2 x 2048 tokens give 256
+#: a shard, so cap = ceil(256·6/64·1.25) = 30 and the capacity formula, not its
+#: floor of 8, governs; then greedy decode steps (batch 2: the dense fallback)
+MESH_ARCH, MESH_SHAPE = "deepseek-moe-16b", ((1, 16), ("data", "model"))
+MESH_BATCH, MESH_PROMPT, MESH_STEPS = 2, 2048, 16
+# the card's a2a against the CPU's: depth 2, float32, 2 x 512 tokens on that mesh
+MESH_PARITY_TOKENS = 512
+# split-KV decode at h2o-danube-1.8b's decode widths: 32 query heads, 8 KV heads of
+# 80, a 4096-token bf16 cache over model 16 (256 a slice: cache_pspecs' S >= tp·128)
+SPLIT_KV = dict(batch=4, heads=32, kv_heads=8, seq=4096, head_dim=80, shards=16)
+# hierarchical_mean over mamba2-780m's parameter shapes on a (pod 2, data 2) mesh
+GRAD_SYNC_ARCH, GRAD_SYNC_MESH = "mamba2-780m", ((2, 2), ("pod", "data"))
+# GPipe: h2o-danube-1.8b's 24 layers in bf16 as 4 stages of 6, 4 microbatches
+PIPE_ARCH, PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = "h2o-danube-1.8b", 4, 4, 2048
+
+
+class PackStats:
+    """Counts ``models.moe._pack_capacity`` calls and their kept and total
+    (token, k) entries while installed (device tensors, read at the end: no sync
+    inside the timed runs)."""
+
+    def __init__(self):
+        self.calls, self.kept, self.entries, self.caps = 0, [], 0, set()
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._mod, self._orig = moe, moe._pack_capacity
+
+        def wrapped(cfg, x_loc, idx_loc, cap):
+            out = self._orig(cfg, x_loc, idx_loc, cap)
+            self.calls += 1
+            self.kept.append(out[2].sum())
+            self.entries += out[2].numel()
+            self.caps.add(cap)
+            return out
+
+        moe._pack_capacity = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._pack_capacity = self._orig
+        return False
+
+    def dropped_share(self) -> float:
+        return 1.0 - float(sum(int(k) for k in self.kept)) / max(self.entries, 1)
+
+
+class RouterReplay:
+    """Records every ``models.moe._router`` result (``replay=None``), or hands
+    back a recorded run's results in call order, moved to the caller's device,
+    counting the tokens whose own top-k expert set differs from the recorded one."""
+
+    def __init__(self, replay=None):
+        self.replay, self.record, self.differ = replay, [], 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._mod, self._orig = moe, moe._router
+
+        def wrapped(cfg, p, x_flat):
+            out = self._orig(cfg, p, x_flat)
+            if self.replay is None:
+                self.record.append(tuple(t.cpu() for t in out))
+                return out
+            want = self.replay[len(self.record)]
+            self.record.append(want)
+            mine = out[1].sort(-1).values.cpu()
+            self.differ += int((mine != want[1].sort(-1).values).any(-1).sum())
+            return tuple(t.to(x_flat.device) for t in want)
+
+        moe._router = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._router = self._orig
+        return False
+
+
+def mesh_serve(torch, dev, smi: str) -> dict:
+    """deepseek-moe-16b at full width and depth through the "a2a" dispatch on
+    the virtual (1, 16) mesh: a cold and a warm prefill of MESH_BATCH x
+    MESH_PROMPT ``synth_batch`` tokens and MESH_STEPS greedy steps (the counts
+    zeroed just before and read just after: one ``flash_attention`` launch per
+    attention layer per prefill, one capacity pack per MoE layer per prefill,
+    none in decode), one prefill with every kernel call held against its plain
+    version, one that keeps the kernel's largest inputs (timed there beside its
+    plain version, its bound and SDPA, one log line), and the same warm prefill
+    through "loop" (no mesh axes) beside it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.ctx import Mesh, MeshAxes, axes_context, set_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.step import make_serve_step
+
+    cfg = get_arch(MESH_ARCH)
+    n_attn = sum(cfg.block_at(i).mixer == "attn" for i in range(cfg.n_layers))
+    n_moe = sum(cfg.block_at(i).moe for i in range(cfg.n_layers))
+    mesh, axes = Mesh(*MESH_SHAPE), MeshAxes(("data",), "model")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    log(f"[mesh] serve-deepseek-a2a: {MESH_ARCH} {cfg.n_layers} layers ({n_attn} attention, "
+        f"{n_moe} MoE: {cfg.n_experts} experts top-{cfg.top_k}, cf {cfg.capacity_factor}), "
+        f"d_model {cfg.d_model}, head_dim {cfg.head_dim}, {n_params:,} parameters "
+        f"({weight_gib:.3f} GiB {cfg.dtype}) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; virtual mesh {mesh.shape}")
+    raw = synth_batch(cfg, step=0, global_batch=MESH_BATCH, seq=MESH_PROMPT)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items() if k != "labels"}
+    cache_len = MESH_PROMPT + MESH_STEPS
+    serve_step = make_serve_step(cfg)
+
+    with set_mesh(mesh), axes_context(axes), PackStats() as packs:
+        reset_counts()
+        logits, cache, cold_ms = serve_prefill(torch, cfg, model, batch, cache_len)
+        per_prefill = launch_counts(["flash_attention"])["flash_attention"]
+        if per_prefill != n_attn or packs.calls != n_moe:
+            raise AssertionError(f"mesh serve: one prefill launched flash_attention "
+                                 f"{per_prefill} times and packed {packs.calls} MoE layers, "
+                                 f"want {n_attn} and {n_moe}")
+        del cache
+        logits, cache, warm_ms = serve_prefill(torch, cfg, model, batch, cache_len)
+        a2a_last = logits.float().cpu()
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        gen = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_STEPS):
+            tok, logits, cache = serve_step(model, cache, tok)
+            gen.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = launch_counts(["flash_attention"])["flash_attention"]
+    if launches != 2 * n_attn or packs.calls != 2 * n_moe:
+        raise AssertionError(f"mesh serve: {launches} flash_attention launches and "
+                             f"{packs.calls} packs over two prefills and {MESH_STEPS} steps, "
+                             f"want {2 * n_attn} and {2 * n_moe}")
+    gen = torch.stack(gen, dim=1).cpu().numpy()
+    if (gen.shape != (MESH_BATCH, MESH_STEPS + 1) or not bool(torch.isfinite(logits).all())
+            or gen.min() < 0 or gen.max() >= cfg.vocab_padded
+            or cache["pos"] != MESH_PROMPT + MESH_STEPS):
+        raise AssertionError(f"mesh serve: bad output {gen.shape}, pos {cache['pos']}")
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    del cache, logits
+    t_loc = MESH_BATCH * MESH_PROMPT // mesh.size
+    stats = {"cold_prefill_ms": cold_ms, "warm_prefill_ms": warm_ms,
+             "decode_ms_per_step": decode_s * 1e3 / MESH_STEPS, "peak_gib": peak_gib,
+             "launches_per_prefill": per_prefill, "tokens_per_shard": t_loc,
+             "capacity": sorted(packs.caps), "dropped_share": packs.dropped_share()}
+
+    with set_mesh(mesh), axes_context(axes):
+        with InputCapture(check=True, kernels=("flash_attention",)) as checker:
+            serve_prefill(torch, cfg, model, batch, cache_len)
+    if checker.checked.get("flash_attention", 0) != n_attn:
+        raise AssertionError(f"mesh serve: the checked prefill held {checker.checked} calls")
+    stats["checked_max_abs_err"] = checker.max_err["flash_attention"]
+    capture = InputCapture(kernels=("flash_attention",))
+    with set_mesh(mesh), axes_context(axes), capture:
+        serve_prefill(torch, cfg, model, batch, cache_len)
+    case = attention_case(torch, *capture.best["flash_attention"][1][:3], MESH_BATCH, cfg.n_heads)
+    row = library_row(torch, "flash_attention", case, launches, stats["checked_max_abs_err"],
+                      "mesh serve-deepseek-a2a", device_time=False)
+    stats["flash_at_path_inputs"] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "library_ms")}
+    del capture, case
+    # the same model and prompts with no mesh axes: "a2a" resolves to the dropless loop
+    loop_logits, _, loop_cold_ms = serve_prefill(torch, cfg, model, batch, cache_len)
+    loop_logits, _, loop_warm_ms = serve_prefill(torch, cfg, model, batch, cache_len)
+    stats.update(loop_cold_prefill_ms=loop_cold_ms, loop_warm_prefill_ms=loop_warm_ms,
+                 a2a_vs_loop_last_logits_max_abs=float((loop_logits.float().cpu()
+                                                        - a2a_last).abs().max()))
+    log(f"[mesh] serve-deepseek-a2a on {smi}: batch {MESH_BATCH} x {MESH_PROMPT} tokens, "
+        f"{t_loc} a shard, capacity {sorted(packs.caps)}; prefill cold {cold_ms:.1f} ms, warm "
+        f"{warm_ms:.1f} ms (through \"loop\": cold {loop_cold_ms:.1f}, warm {loop_warm_ms:.1f} "
+        f"ms); {MESH_STEPS} greedy steps {decode_s * 1e3:.1f} ms "
+        f"({stats['decode_ms_per_step']:.3f} ms/step, dense fallback at batch "
+        f"{MESH_BATCH}); dropped (token, k) entries {stats['dropped_share']:.5f} of "
+        f"{packs.entries:,}; peak device memory {peak_gib:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before; flash_attention {per_prefill} launches per "
+        f"prefill at D={cfg.head_dim}, {launches} over the run, the checked prefill's "
+        f"{checker.checked['flash_attention']} calls within their limit (max |err| "
+        f"{stats['checked_max_abs_err']:.4g}); last-token logits a2a against loop max |diff| "
+        f"{stats['a2a_vs_loop_last_logits_max_abs']:.4g} (not held: cf "
+        f"{cfg.capacity_factor} drops entries); first row {gen[0][:12].tolist()}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "stats": stats}
+
+
+def mesh_moe_parity(torch, dev) -> dict:
+    """deepseek-moe-16b cut to 2 layers in float32, the same weights on the CPU
+    and the card (seed 1), 2 x MESH_PARITY_TOKENS tokens on the virtual (1, 16)
+    mesh: the card's "a2a" logits against the CPU's at the config's cf (with
+    drops; the card replays the CPU's routing, and the tokens whose own routing
+    differed are counted), then at a dropless cf (E / top_k) both sides' "a2a"
+    against their own "loop" — every limit PARITY_TOL + PARITY_TOL·|want|."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.ctx import Mesh, MeshAxes, axes_context, set_mesh
+    from repro_torch.models.model import init_params, model_forward
+    from repro_torch.train.data import synth_batch
+
+    cfg = replace(get_arch(MESH_ARCH), n_layers=PARITY_LAYERS, dtype="float32")
+    dropless = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    cpu_model = init_params(cfg, seed=1, device="cpu")
+    card = copy.deepcopy(cpu_model).to(dev)
+    raw = synth_batch(cfg, step=1, global_batch=MESH_BATCH, seq=MESH_PARITY_TOKENS)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in raw.items() if k != "labels"}
+    card_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    mesh, axes = Mesh(*MESH_SHAPE), MeshAxes(("data",), "model")
+    out = {}
+
+    def hold(what, got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        err = (got - want).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (err > PARITY_TOL + PARITY_TOL * want.abs()).any()):
+            raise AssertionError(f"mesh moe parity: {what} differs by {float(err.max())}")
+        out[what] = float(err.max())
+
+    def forward(c, model, b, mesh_on=True):
+        with torch.no_grad():
+            if not mesh_on:
+                return model_forward(c, model, b)[0]
+            with set_mesh(mesh), axes_context(axes), PackStats() as packs:
+                logits = model_forward(c, model, b)[0]
+            out.setdefault("dropped_share", {})[f"cf {c.capacity_factor:.4g}, "
+                                                f"{b['tokens'].device.type}"] = \
+                packs.dropped_share()
+            return logits
+
+    with RouterReplay() as rec:
+        want = forward(cfg, cpu_model, cpu_batch)
+    with RouterReplay(rec.record) as rep:
+        got = forward(cfg, card, card_batch)
+    hold("a2a card vs cpu", got, want)
+    out["tokens_routed_differently_on_the_card"] = rep.differ
+    del got, want
+    for side, model, b in (("cpu", cpu_model, cpu_batch), ("card", card, card_batch)):
+        loop = forward(cfg, model, b, mesh_on=False)
+        hold(f"a2a dropless vs loop, {side}", forward(dropless, model, b), loop)
+        del loop
+    if out["dropped_share"][f"cf {cfg.capacity_factor:.4g}, cpu"] <= 0:
+        raise AssertionError("mesh moe parity: the config's cf dropped nothing at this size")
+    log(f"[mesh] parity {MESH_ARCH}, {PARITY_LAYERS} layers, float32, {MESH_BATCH} x "
+        f"{MESH_PARITY_TOKENS} tokens on {mesh.shape}: {json.dumps(out)} (limit {PARITY_TOL} "
+        f"+ {PARITY_TOL}·|want|; the dropless cf is E/top_k = {dropless.capacity_factor:.4g})")
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_kv_limit(torch, q, k, v, want):
+    """The |Δ| (B, H, hd) by which the split-KV combine may differ from
+    ``reference_decode_attention``'s bf16 output ``want``: every score is rounded
+    to bf16 once on each side (|Δs_j| ≤ 2^-7·|s_j|, moving the output by at most
+    Σ_j w_j·|Δs_j|·(|v_j| + |out|)), and at most four more roundings of 2^-8 on
+    either side fall on the weights, the shards' partial sums and the output
+    (2^-6·(Σ_j w_j·|v_j| + |out|)); w, s in float32 from the same inputs."""
+    b, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, kv, h // kv, hd)
+    s = torch.einsum("bkrd,bskd->bkrs", qg, k.float()) * hd ** -0.5
+    w = torch.softmax(s, dim=-1)
+    va = v.float().abs()
+    o = want.float().abs().reshape(b, kv, h // kv, hd)
+    ws = w * s.abs()
+    score = torch.einsum("bkrs,bskd->bkrd", ws, va) + ws.sum(-1, keepdim=True) * o
+    rest = torch.einsum("bkrs,bskd->bkrd", w, va) + o
+    return (2.0 ** -7 * score + 2.0 ** -6 * rest).reshape(b, h, hd)
+
+
+def mesh_decode(torch, dev, smi: str) -> dict:
+    """``split_kv_decode_attention`` at SPLIT_KV's widths against
+    ``reference_decode_attention`` within ``split_kv_limit``, both timed."""
+    from repro_torch.dataplane.decode_attn import (reference_decode_attention,
+                                                   split_kv_decode_attention)
+    from repro_torch.distributed.ctx import Mesh
+
+    w = SPLIT_KV
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn(w["batch"], w["heads"], w["head_dim"], generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(w["batch"], w["seq"], w["kv_heads"], w["head_dim"], generator=g,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    mesh = Mesh((w["shards"],), ("model",))
+    got = split_kv_decode_attention(mesh, "model", q, k, v)
+    want = reference_decode_attention(q, k, v)
+    lim = split_kv_limit(torch, q, k, v, want)
+    err = (got.float() - want.float()).abs()
+    used = float((err / lim).max())
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or used > 1:
+        raise AssertionError(f"split-KV decode: differs by {float(err.max())} ({used:.3g} of "
+                             "the limit)")
+    split_ms = cuda_ms(torch, lambda: split_kv_decode_attention(mesh, "model", q, k, v))
+    ref_ms = cuda_ms(torch, lambda: reference_decode_attention(q, k, v))
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    res = {"split_ms": split_ms, "reference_ms": ref_ms, "max_abs_err": float(err.max()),
+           "limit_used": used, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"[mesh] split-KV decode on {smi}: q {tuple(q.shape)}, cache {tuple(k.shape)} bf16 "
+        f"over model {w['shards']} ({w['seq'] // w['shards']} a slice): {json.dumps(res)} "
+        "(CUDA events, 10 calls after 2 warm-ups)")
+    return res
+
+
+def mesh_grad_sync(torch, dev, smi: str) -> dict:
+    """``hierarchical_mean`` over GRAD_SYNC_ARCH's parameter shapes (from its
+    meta-device model), float32, on the virtual (pod 2, data 2) mesh: distinct
+    replicas against a plain mean over the replica dims within float32 rounding
+    (each side at most n_rep - 1 additions and one division: 2^-21·Σ_r|x_r|/n_rep
+    together), timed against the bytes bound (every replica read once, one copy
+    of the mean written: the result is one tensor broadcast over the replicas);
+    replicated input comes back bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.ctx import Mesh
+    from repro_torch.distributed.specs import P, place
+    from repro_torch.launch.inputs import params_specs
+    from repro_torch.train.grad_sync import hierarchical_mean
+
+    shapes = {k: tuple(p.shape) for k, p in params_specs(get_arch(GRAD_SYNC_ARCH))
+              .named_parameters()}
+    mesh = Mesh(*GRAD_SYNC_MESH)
+    n_rep = mesh.size
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(22)
+    grads = {k: torch.randn(*mesh.sizes, *s, generator=g, device=dev) for k, s in shapes.items()}
+    n = sum(math.prod(s) for s in shapes.values())
+    in_bytes = n * 4 * n_rep
+    out = hierarchical_mean(grads, mesh)
+    worst = 0.0
+    for k, x in grads.items():
+        want = x.mean(dim=(0, 1))
+        lim = 2.0 ** -21 * x.abs().sum(dim=(0, 1)) / n_rep
+        err = (out[k] - want).abs()
+        if bool((err > lim).any()):
+            raise AssertionError(f"hierarchical mean: {k} differs from the mean by "
+                                 f"{float(err.max())}")
+        worst = max(worst, float((err / lim.clamp_min(1e-30)).max()))
+    del out
+    ms = cuda_ms(torch, lambda: hierarchical_mean(grads, mesh), reps=5)
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    replicated = {k: x[0, 0] for k, x in grads.items()}
+    back = hierarchical_mean({k: place(x, mesh, P()) for k, x in replicated.items()}, mesh)
+    for k, x in replicated.items():
+        if not torch.equal(back[k], place(x, mesh, P())):
+            raise AssertionError(f"hierarchical mean: replicated {k} came back changed")
+    bound_ms = (in_bytes + n * 4) / HBM_BYTES_PER_S * 1e3
+    res = {"leaves": len(shapes), "params": n, "input_gb": in_bytes / 1e9, "ms": ms,
+           "bytes_bound_ms": bound_ms, "limit_used": worst, "peak_gib": peak_gib}
+    log(f"[mesh] hierarchical mean on {smi}: {GRAD_SYNC_ARCH}'s {len(shapes)} parameter "
+        f"shapes ({n:,} float32 each) x {n_rep} distinct replicas on {mesh.shape}: "
+        f"{json.dumps(res)} (CUDA events, 5 calls after 2 warm-ups); replicated input came "
+        "back bit for bit")
+    del grads, back
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_pipeline(torch, dev, smi: str) -> dict:
+    """``pipelined_forward`` over PIPE_ARCH's layers at full width in bf16, split
+    into PIPE_STAGES stages on a virtual stage axis, PIPE_MICRO microbatches of
+    1 x PIPE_SEQ embedded tokens, against the serial forward of every layer on the
+    same microbatches: bit-equal (each stage runs its layers on the shapes of the
+    serial run), else within 2e-2 + 2e-2·|serial| (the bf16 limit of the CPU
+    tests) — the log says which held. ``flash_attention`` launches: a stage
+    runs every tick, bubbles included: (M + S - 1)·S·layers a stage."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.ctx import Mesh
+    from repro_torch.models.layers import embed_apply
+    from repro_torch.models.model import _block_apply, init_params
+    from repro_torch.train.data import synth_batch
+    from repro_torch.train.pipeline import pipelined_forward
+
+    cfg = get_arch(PIPE_ARCH)
+    per_stage = cfg.n_layers // PIPE_STAGES
+    if per_stage * PIPE_STAGES != cfg.n_layers or any(cfg.block_at(i).mixer != "attn"
+                                                       for i in range(cfg.n_layers)):
+        raise AssertionError(f"{PIPE_ARCH}: {cfg.n_layers} layers do not split into "
+                             f"{PIPE_STAGES} attention stages")
+    model = init_params(cfg, seed=0)
+    raw = synth_batch(cfg, step=0, global_batch=PIPE_MICRO, seq=PIPE_SEQ)
+    positions = torch.arange(PIPE_SEQ, device=dev)[None, :]
+    with torch.no_grad():
+        x = embed_apply(cfg, model.embed, torch.from_numpy(raw["tokens"]).to(dev))[:, None]
+    stages = [list(model.layers[s * per_stage:(s + 1) * per_stage]) for s in range(PIPE_STAGES)]
+
+    def stage_fn(xm, layers):
+        for layer in layers:
+            xm, _ = _block_apply(cfg, layer.spec, layer, xm, positions)
+        return xm
+
+    def serial():
+        return torch.stack([stage_fn(x[m], list(model.layers)) for m in range(PIPE_MICRO)])
+
+    mesh = Mesh((PIPE_STAGES,), ("stage",))
+
+    def piped():
+        return pipelined_forward(mesh, "stage", PIPE_STAGES, PIPE_MICRO, stage_fn, x, stages)
+
+    with torch.no_grad():
+        reset_counts()
+        want = serial()
+        n_serial = launch_counts(["flash_attention"])["flash_attention"]
+        reset_counts()
+        got = piped()
+        n_piped = launch_counts(["flash_attention"])["flash_attention"]
+        timed = {}
+        for name, fn in (("serial", serial), ("pipelined", piped), ("pipelined", piped),
+                         ("serial", serial)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            timed.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    if n_serial != PIPE_MICRO * cfg.n_layers or n_piped != ticks * cfg.n_layers:
+        raise AssertionError(f"pipeline: flash_attention launched {n_serial} serial / "
+                             f"{n_piped} pipelined times, want {PIPE_MICRO * cfg.n_layers} / "
+                             f"{ticks * cfg.n_layers}")
+    bit_equal = bool(torch.equal(got, want))
+    err = float((got.float() - want.float()).abs().max())
+    if not bit_equal and bool((((got.float() - want.float()).abs()
+                                > 2e-2 + 2e-2 * want.float().abs())).any()):
+        raise AssertionError(f"pipeline: differs from the serial forward by {err}")
+    res = {"bit_equal": bit_equal, "max_abs_err": err, "serial_ms": timed["serial"],
+           "pipelined_ms": timed["pipelined"], "flash_launches_serial": n_serial,
+           "flash_launches_pipelined": n_piped,
+           "bubble_fraction": (PIPE_STAGES - 1) / ticks}
+    log(f"[mesh] GPipe on {smi}: {PIPE_ARCH} {cfg.n_layers} layers as {PIPE_STAGES} stages x "
+        f"{per_stage}, {PIPE_MICRO} microbatches of 1 x {PIPE_SEQ}, {cfg.dtype}: "
+        f"{json.dumps(res)} (host clock with a sync; serial, pipelined, pipelined, serial)")
+    del model, x, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_memory() -> dict:
+    """Host arithmetic: deepseek-moe-16b's bytes per device under ``param_pspecs``
+    (fsdp on) on both production meshes: the parameters in their dtypes, and the
+    optimizer state (fp32 master, m, v under the same specs, and the step)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.specs import param_pspecs
+    from repro_torch.launch.inputs import params_specs
+    from repro_torch.launch.mesh import axes_for, make_production_mesh
+
+    model = params_specs(get_arch(MESH_ARCH))
+    out = {}
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi)
+        specs = param_pspecs(model, mesh, axes_for(mesh))
+        params = opt = 0.0
+        for name, p in model.named_parameters():
+            split = math.prod(mesh.shape[a] for e in specs[name] if e is not None
+                              for a in ((e,) if isinstance(e, str) else e))
+            params += p.numel() * p.element_size() / split
+            opt += p.numel() * 12 / split
+        out["x".join(map(str, mesh.sizes))] = {"params_gb": params / 1e9,
+                                               "opt_state_gb": (opt + 4) / 1e9}
+    log(f"[mesh] {MESH_ARCH} per-device memory from param_pspecs (host arithmetic): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_mesh(torch, dev, smi: str) -> dict:
+    """The mesh phase: deepseek-moe-16b served through "a2a" on the virtual
+    (1, 16) mesh (its ``flash_attention`` launches are this path's count), its
+    depth-2 card-against-CPU parity, split-KV decode, the hierarchical mean, the
+    GPipe pipeline and the spec rules' per-device memory → the path's launches."""
+    served = mesh_serve(torch, dev, smi)
+    log(f"[mesh] serve-deepseek-a2a summary on {smi}: {json.dumps(served['stats'])}")
+    mesh_moe_parity(torch, dev)
+    mesh_decode(torch, dev, smi)
+    mesh_grad_sync(torch, dev, smi)
+    mesh_pipeline(torch, dev, smi)
+    mesh_memory()
+    return {"flash_attention": served["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3031,6 +3543,10 @@ def main(argv=None) -> int:
             row["train_launches"] = run["launches"]
             row["train_launches_per_step"] = run["per_step"]
             row["train_max_abs_err"] = run["max_err"]
+    meshed = timed("phase mesh", phase_mesh, torch, dev, env["smi"])
+    for row in rows:
+        if row["name"] in meshed:
+            row["mesh_launches"] = meshed[row["name"]]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(f"{env['smi']}")
     print(json.dumps({"kernels": rows}))

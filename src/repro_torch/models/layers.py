@@ -27,7 +27,8 @@ class Init:
     """Makes a model's tensors on one device: ``init(shape, dtype, std)`` draws
     normal(0, std) from ``generator``, or, with no generator, returns
     uninitialised storage for weights copied in afterwards
-    (``convert.params_from_numpy``); :meth:`full` makes constants."""
+    (``convert.params_from_numpy``) — on the ``meta`` device, shapes and dtypes
+    with no storage (``launch/inputs.py``); :meth:`full` makes constants."""
 
     def __init__(self, device: torch.device, generator: Optional[torch.Generator] = None):
         self.device, self.generator = device, generator

@@ -117,8 +117,11 @@ class Model(nn.Module):
 
 def init_params(cfg, seed: int = 0, device=None) -> Model:
     """Random weights drawn on ``device`` (the card unless the caller names
-    another) from a ``torch.Generator`` seeded with ``seed``."""
+    another) from a ``torch.Generator`` seeded with ``seed``. On the ``meta``
+    device nothing is drawn or allocated: the model carries shapes and dtypes."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return Model(cfg, Init(dev))
     gen = torch.Generator(device=dev).manual_seed(seed)
     return Model(cfg, Init(dev, gen))
 
