@@ -161,6 +161,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      1 x 2048, against the serial forward (bit-equal or the bf16 limit, logged);
      and deepseek-moe-16b's bytes per device under ``param_pspecs`` on both
      production meshes (host arithmetic);
+  dryrun: the dry run (``launch/dryrun.py``, ``analysis/{roofline,probes,cost}``):
+     ``main`` over all 10 archs x 4 shapes x both production meshes, one process
+     per arch started together, each cell counted on meta tensors on the host
+     (68 ok, the 12 long_500k skips; one line per cell with its terms on the
+     H100 and its bottleneck; the wall time against a 180 s budget); then
+     ``CostCounter`` on the card: a warm h2o-danube-1.8b prefill and a warm
+     mamba2-780m train step at full width and depth (4 x 2048 ``synth_batch``,
+     bf16), each counted twice on CUDA tensors and once on meta stand-ins,
+     FLOPs, bytes and kernel units equal, 24 ``flash_attention`` / 96
+     ``ssd_chunk`` launches in each counted run, the warm ms beside the H100
+     bound of the count;
   then the ``kernels`` JSON line (six rows).  Phases 3-5 give the join
   kernels' launch counts, on a session that does not verify (the service's
   default), the serve phase those of ``flash_attention`` and ``ssd_chunk``
@@ -168,9 +179,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
   serve path's inputs; the train phase adds to those two rows its launches
   (``train_launches``, ``train_launches_per_step``) and the checked step's
   largest |err| (``train_max_abs_err``), the mesh phase its deepseek serving
-  run's ``flash_attention`` launches (``mesh_launches``); ``hash_partition``'s
-  row is phase 7's.  Patterns, service, verify, simulator and general run after phases
-  3-5 (phase 6 and 7 follow, then serve, then train, then mesh).
+  run's ``flash_attention`` launches (``mesh_launches``), the dryrun phase its
+  counted runs' (``dryrun_launches``); ``hash_partition``'s row is phase 7's.
+  Patterns, service, verify, simulator and general run after phases 3-5
+  (phase 6 and 7 follow, then serve, train, mesh and dryrun).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 
@@ -188,6 +200,7 @@ import copy
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1343,41 +1356,39 @@ def attention_case(torch, q, k, v, batch: int, heads: int) -> dict:
     """Causal attention over q/k/v (BH, S, D), BH = batch·heads, for
     ``library_row``: the kernel, its plain version (8 heads at a time: it holds a
     (heads, S, S) fp32 score tensor), SDPA, and the bound's FLOPs and bytes."""
+    from repro_torch.analysis.roofline import kernel_costs
     from repro_torch.kernels import ops, ref
 
     bh, seq, hd = q.shape
     plain = lambda: torch.cat([ref.flash_attention_ref(q[i:i + 8], k[i:i + 8], v[i:i + 8], True)
                                for i in range(0, bh, 8)])
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    pairs = bh * seq * (seq + 1) // 2                # (q, k) pairs the causal mask keeps
+    costs = kernel_costs("flash_attention", q, k, v, causal=True)
     return dict(
         kern=lambda: ops.flash_attention(q, k, v, causal=True, bq=seq, bk=seq), plain=plain,
         # SDPA's fused kernels take (batch, heads, S, D); (BH, S, D) would send it to
         # its unfused math path
         library=lambda: sdpa(*(x.view(batch, heads, seq, hd) for x in (q, k, v)),
                              is_causal=True),
-        flops=4 * hd * pairs,
+        flops=costs["flops"],
         peak=BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S,
-        nbytes=q.element_size() * (q.numel() * 2 + k.numel() + v.numel()),
+        nbytes=costs["bytes"],
         shape=f"BH={bh} S={seq} D={hd} {str(q.dtype)[6:]} causal")
 
 
 def ssd_case(torch, ssd_args, chunk: int) -> dict:
     """ssd_chunk over (x, dt, a, b, c) for ``library_row``."""
+    from repro_torch.analysis.roofline import kernel_costs
     from repro_torch.kernels import ops, ref
 
     bh, s_len, p_dim = ssd_args[0].shape
     n_dim = ssd_args[3].shape[2]
-    # per chunk: C·Bᵀ and the weighted x on the causal triangle, then the
-    # inter-chunk term C·prevᵀ and the state update xᵀ·B, 2 FLOPs per MAC
-    tri = chunk * (chunk + 1) // 2
-    flops = bh * (s_len // chunk) * 2 * (tri * (n_dim + p_dim) + 2 * chunk * p_dim * n_dim)
+    costs = kernel_costs("ssd_chunk", *ssd_args, chunk=chunk)
     return dict(
         kern=lambda: ops.ssd_chunk(*ssd_args, chunk=chunk),
         plain=lambda: ref.ssd_chunked_ref(*ssd_args, chunk), library=None,
         # the least time for the work on any pipe: the TF32 tensor cores
-        flops=flops, peak=TF32_FLOP_PER_S,
-        nbytes=4 * (sum(a.numel() for a in ssd_args) + ssd_args[0].numel() + bh * p_dim * n_dim),
+        flops=costs["flops"], peak=TF32_FLOP_PER_S, nbytes=costs["bytes"],
         shape=f"BH={bh} S={s_len} chunk={chunk} P={p_dim} N={n_dim} fp32")
 
 
@@ -3462,6 +3473,175 @@ def phase_mesh(torch, dev, smi: str) -> dict:
     return {"flash_attention": served["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The dry run and the roofline (``launch/dryrun.py``, ``analysis/``)
+# ---------------------------------------------------------------------------
+
+#: the full matrix, every arch x shape on both production meshes: ok cells and
+#: the long_500k skips of the archs with full attention (6 archs x 2 meshes)
+DRYRUN_OK, DRYRUN_SKIPPED = 68, 12
+# past this many seconds, the matrix is logged as over budget
+DRYRUN_BUDGET_S = 180
+#: the counted steps on the card: (tag, arch, step kind, kernel, launches a step)
+DRYRUN_STEPS = (("roofline-danube-prefill", "h2o-danube-1.8b", "prefill", "flash_attention", 24),
+                ("roofline-mamba2-train", "mamba2-780m", "train", "ssd_chunk", 96))
+
+
+def dryrun_matrix(smi: str) -> dict:
+    """``launch/dryrun.py``'s ``main`` over every arch x shape on both production
+    meshes into a fresh ``artifacts/dryrun_torch/``: one process per arch
+    (``--arch A --both-meshes --force``), all started together, each counting its
+    cells on meta tensors on the host. DRYRUN_OK cells ok and DRYRUN_SKIPPED
+    skipped; one log line per cell with its terms on the H100 and its bottleneck."""
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.dryrun import ART_DIR
+
+    shutil.rmtree(ART_DIR, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--both-meshes",
+         "--force"], cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for arch in sorted(ARCHS)}
+    outputs = {arch: proc.communicate()[0] for arch, proc in procs.items()}
+    wall_s = time.perf_counter() - t0
+    failed = [arch for arch, proc in procs.items() if proc.returncode != 0]
+    if failed:
+        raise AssertionError(f"dry run failed for {failed}: "
+                             + " | ".join(outputs[a][-2000:] for a in failed))
+    cells = [json.loads(path.read_text()) for path in sorted(ART_DIR.glob("*.json"))]
+    status = {k: sum(c["status"] == k for c in cells) for k in ("ok", "skipped", "error")}
+    if status != {"ok": DRYRUN_OK, "skipped": DRYRUN_SKIPPED, "error": 0}:
+        raise AssertionError(f"dry-run matrix: {status} over {len(cells)} cells")
+    for c in cells:
+        tag = f"{c['arch']} {c['shape']} {'pod2' if c['multi_pod'] else 'pod1'}"
+        if c["status"] != "ok":
+            log(f"[dryrun] {tag}: skipped ({c['reason']})")
+            continue
+        r = c["roofline_h100"]
+        log(f"[dryrun] {tag}: {c['n_chips']} devices, per device {c['flops_per_device']:.4g} "
+            f"FLOPs, {c['bytes_per_device']:.4g} bytes, {c['coll_bytes_per_device']:.4g} "
+            f"collective bytes; H100 t_compute {r['t_compute_s']:.4g} s, t_memory "
+            f"{r['t_memory_s']:.4g} s, t_collective {r['t_collective_s']:.4g} s: "
+            f"{r['bottleneck']}; kernel units {c['kernel_units']}; argument bytes "
+            f"{c['memory_analysis']['argument_bytes']:,}; counted in {c['compile_s']} s")
+    slowest = max((c for c in cells if c["status"] == "ok"), key=lambda c: c["compile_s"])
+    log(f"[dryrun] matrix on the host of {smi}: {status['ok']} ok, {status['skipped']} skipped, "
+        f"{wall_s:.1f} s wall over {len(procs)} processes (budget {DRYRUN_BUDGET_S} s"
+        f"{'' if wall_s <= DRYRUN_BUDGET_S else ': OVER'}); slowest cell {slowest['arch']} "
+        f"{slowest['shape']} {slowest['compile_s']} s")
+    return {"wall_s": wall_s, **status}
+
+
+def counted_step(torch, kind: str, cfg, device, batch):
+    """(the step, its arguments) for ``kind`` at ``cfg`` on ``device``: a prefill of
+    ``batch`` (labels dropped), or a ``make_train_step`` step at the train phase's
+    schedule with fresh optimizer state. Random weights from seed 0; on ``meta``
+    nothing is drawn."""
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (TrainConfig, init_train_state, make_prefill_step,
+                                        make_train_step)
+
+    model = init_params(cfg, seed=0, device=device)
+    if kind == "prefill":
+        return make_prefill_step(cfg), (model, {k: v for k, v in batch.items()
+                                                if k != "labels"})
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, TRAIN_STEPS // 20),
+                                         total_steps=TRAIN_STEPS))
+    return make_train_step(cfg, tcfg), (model, init_train_state(cfg, tcfg, model), batch)
+
+
+def count_diff(card, meta) -> list:
+    """The aten ops whose [calls, flops, bytes] differ between two counters."""
+    keys = sorted(set(card.by_op) | set(meta.by_op))
+    return [[k, card.by_op.get(k), meta.by_op.get(k)] for k in keys
+            if card.by_op.get(k) != meta.by_op.get(k)][:12]
+
+
+def dryrun_counts(torch, dev, smi: str) -> dict:
+    """``CostCounter`` on the card: each of DRYRUN_STEPS at full width and depth in
+    its config's dtype, on the serve / train phases' 4 x 2048 ``synth_batch``, run
+    once cold and once warm (host clock, a sync), then twice counted on CUDA
+    tensors (its kernel launched exactly ``launches`` times in each, read from the
+    counts zeroed just before) and once counted on meta stand-ins of the same
+    shapes: FLOPs, bytes and kernel units equal. The warm ms beside
+    ``roofline_terms``' bound of that count on the H100 → the launches by kernel."""
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.analysis.roofline import HW_H100, roofline_terms
+    from repro_torch.configs import get_arch
+    from repro_torch.train.data import synth_batch
+
+    launches = {}
+    for tag, arch, kind, kernel, want in DRYRUN_STEPS:
+        cfg = get_arch(arch)
+        raw = synth_batch(cfg, step=0, global_batch=SERVE_BATCH, seq=SERVE_PROMPT)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        step, args = counted_step(torch, kind, cfg, dev, batch)
+        times = []
+        for _ in range(2):                           # cold, then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counted = []                                 # twice: the first pays one-time costs
+        for _ in range(2):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CostCounter() as card:
+                step(*args)
+                torch.cuda.synchronize()
+            counted.append(((time.perf_counter() - t0) * 1e3, card,
+                            launch_counts([kernel])[kernel]))
+        del step, args
+        torch.cuda.empty_cache()
+        meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                      for k, v in batch.items()}
+        step, args = counted_step(torch, kind, cfg, "meta", meta_batch)
+        t0 = time.perf_counter()
+        with CostCounter() as meta:
+            step(*args)
+        meta_ms = (time.perf_counter() - t0) * 1e3
+        del step, args
+        for _, card, n in counted:
+            got = (card.flops, card.bytes, card.units)
+            if got != (meta.flops, meta.bytes, meta.units):
+                raise AssertionError(f"{tag}: the card's count {got} differs from the meta "
+                                     f"count {(meta.flops, meta.bytes, meta.units)}: "
+                                     f"{json.dumps(count_diff(card, meta))}")
+            if n != want or card.units.get(kernel) != want:
+                raise AssertionError(f"{tag}: {kernel} launched {n} times ({card.units} "
+                                     f"units), want {want}")
+        n = counted[-1][2]
+        terms = roofline_terms(card.flops, card.bytes, 0.0, HW_H100)
+        warm_ms = times[1]
+        top = sorted(card.by_op.items(), key=lambda kv: -kv[1][2])[:6]
+        log(f"[dryrun] {tag} on {smi}: {arch} {kind}, {SERVE_BATCH} x {SERVE_PROMPT} tokens, "
+            f"cold {times[0]:.1f} ms, warm {warm_ms:.1f} ms; counted {card.flops:,} FLOPs and "
+            f"{card.bytes:,} bytes (equal on meta), {card.units} kernel units, {n} {kernel} "
+            f"launches; H100 bound {terms['t_bound_s'] * 1e3:.3f} ms ({terms['bottleneck']}: "
+            f"t_compute {terms['t_compute_s'] * 1e3:.3f} ms, t_memory "
+            f"{terms['t_memory_s'] * 1e3:.3f} ms), warm / bound "
+            f"{warm_ms / (terms['t_bound_s'] * 1e3):.2f}; the counted runs "
+            f"{counted[0][0]:.1f} and {counted[1][0]:.1f} ms, the meta count {meta_ms:.1f} ms; "
+            f"most bytes {json.dumps(top)}")
+        launches[kernel] = n
+        del batch, meta_batch
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dryrun(torch, dev, smi: str) -> dict:
+    """The dryrun phase: the full dry-run matrix on the host, then the cost counter
+    on the card against its meta count → the counted runs' launches."""
+    dryrun_matrix(smi)
+    return dryrun_counts(torch, dev, smi)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3547,6 +3727,10 @@ def main(argv=None) -> int:
     for row in rows:
         if row["name"] in meshed:
             row["mesh_launches"] = meshed[row["name"]]
+    counted = timed("phase dryrun", phase_dryrun, torch, dev, env["smi"])
+    for row in rows:
+        if row["name"] in counted:
+            row["dryrun_launches"] = counted[row["name"]]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(f"{env['smi']}")
     print(json.dumps({"kernels": rows}))

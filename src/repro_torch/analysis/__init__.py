@@ -1,5 +1,6 @@
-"""The symbolic per-round load model that backs the static verifier's
-``load-bound`` rule (a copy of the reference package's ``loadmodel``)."""
+"""Roofline analysis of counted steps (``roofline``, ``cost``, ``probes``, read by
+``launch/dryrun.py``) and the symbolic per-round load model that backs the static
+verifier's ``load-bound`` rule (a copy of the reference package's ``loadmodel``)."""
 
 from .loadmodel import (
     DATA_ROUNDS,
@@ -10,3 +11,4 @@ from .loadmodel import (
     round_bounds,
     round_bounds_by_name,
 )
+from .roofline import collective_bytes, roofline_terms, HW

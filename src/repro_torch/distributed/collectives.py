@@ -10,7 +10,8 @@ JAX collective of the same name with ``tiled=False``; local dimension numbers
 (``split_axis``, ``scatter_dimension``, ...) count from the first local dimension.
 
 A result that is the same on every device of an axis is returned as a broadcast
-view along that axis (``expand``), not as copies.
+view along that axis (``expand``), not as copies. Every result is reported to
+the cost counter (``analysis/cost.py``), if one is entered.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Iterable, Tuple
 
 import torch
 
+from ..analysis.cost import collective
 from .ctx import Mesh
 
 
@@ -32,13 +34,13 @@ def _check(x: torch.Tensor, mesh: Mesh) -> int:
 def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Sum over the devices of ``axis``."""
     _check(x, mesh)
-    return x.sum(dim=mesh.dim(axis), keepdim=True).expand_as(x)
+    return collective("psum", x.sum(dim=mesh.dim(axis), keepdim=True).expand_as(x), mesh.size)
 
 
 def pmax(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Elementwise maximum over the devices of ``axis``."""
     _check(x, mesh)
-    return x.amax(dim=mesh.dim(axis), keepdim=True).expand_as(x)
+    return collective("pmax", x.amax(dim=mesh.dim(axis), keepdim=True).expand_as(x), mesh.size)
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
@@ -51,7 +53,8 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
     if x.shape[n + split_axis] != mesh.shape[axis]:
         raise ValueError(f"all_to_all: local dim {split_axis} of {tuple(x.shape[n:])} is not "
                          f"the size of axis {axis!r} ({mesh.shape[axis]})")
-    return x.transpose(d, n + split_axis).movedim(n + split_axis, n + concat_axis)
+    out = x.transpose(d, n + split_axis).movedim(n + split_axis, n + concat_axis)
+    return collective("all_to_all", out, mesh.size)
 
 
 def psum_scatter(x: torch.Tensor, mesh: Mesh, axis: str,
@@ -63,7 +66,8 @@ def psum_scatter(x: torch.Tensor, mesh: Mesh, axis: str,
     if x.shape[n + scatter_dimension] != mesh.shape[axis]:
         raise ValueError(f"psum_scatter: local dim {scatter_dimension} of {tuple(x.shape[n:])} "
                          f"is not the size of axis {axis!r} ({mesh.shape[axis]})")
-    return x.sum(dim=d).movedim(n - 1 + scatter_dimension, d)
+    return collective("psum_scatter", x.sum(dim=d).movedim(n - 1 + scatter_dimension, d),
+                      mesh.size)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, gather_axis: int = 0) -> torch.Tensor:
@@ -72,7 +76,8 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, gather_axis: int = 0) -> 
     n = _check(x, mesh)
     d = mesh.dim(axis)
     out = x.movedim(d, n - 1 + gather_axis).unsqueeze(d)
-    return out.expand(*x.shape[:d], mesh.shape[axis], *out.shape[d + 1:])
+    out = out.expand(*x.shape[:d], mesh.shape[axis], *out.shape[d + 1:])
+    return collective("all_gather", out, mesh.size)
 
 
 def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
@@ -94,4 +99,4 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
         else:
             zero = torch.zeros_like(x.select(d, 0)) if zero is None else zero
             parts.append(zero)
-    return torch.stack(parts, dim=d)
+    return collective("ppermute", torch.stack(parts, dim=d), mesh.size)

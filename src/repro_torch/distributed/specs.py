@@ -259,6 +259,14 @@ def _entries(mesh: Mesh, spec, ndim: int) -> List[Tuple[str, ...]]:
     return entries
 
 
+def shard_shape(shape, mesh: Mesh, spec) -> Tuple[int, ...]:
+    """The block of a tensor of ``shape`` that each device of ``mesh`` holds under
+    ``spec`` (a dim that does not divide is padded up, as XLA pads it)."""
+    entries = _entries(mesh, spec, len(shape))
+    return tuple(-(-size // math.prod(mesh.shape[a] for a in axes))
+                 for size, axes in zip(shape, entries))
+
+
 def place(x: torch.Tensor, mesh: Mesh, spec) -> torch.Tensor:
     """A full tensor → its per-device blocks on ``mesh`` by ``spec``: shape
     (*mesh sizes, *block shape), a view of ``x`` wherever ``x`` is contiguous

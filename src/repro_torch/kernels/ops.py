@@ -6,12 +6,17 @@ layout and shape contract of the JAX package's ``repro.kernels.ops``.
 Dispatch is by the tensors' device alone: a CPU tensor runs the plain
 PyTorch version (``ref.py``), a CUDA tensor launches the hand-written kernel
 — or raises; there is no fallback from the kernel to the plain version.
+``flash_attention`` and ``ssd_chunk`` also take ``meta`` tensors, for which
+they return empty outputs of the right shapes (a meta tensor holds no data, so
+there is nothing to compute): the dry run counts a step on meta tensors. Each
+of the two runs as one unit of ``analysis.cost.kernel_unit``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..analysis.cost import kernel_unit
 from . import flash_attention as _fa
 from . import hash_partition as _hp
 from . import merge_join as _mj
@@ -27,6 +32,10 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     if kinds == {"cuda"}:
         return False
     raise ValueError(f"kernels take CPU or CUDA tensors on one device type, got {kinds}")
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    return {t.device.type for t in tensors} == {"meta"}
 
 
 def merge_join_counts(a_keys: torch.Tensor, b_keys: torch.Tensor):
@@ -101,9 +110,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     if bq < 1 or bk < 1 or sq % bq or sk % bk:
         raise ValueError(f"flash_attention: Sq={sq}, Sk={sk} are not multiples of the "
                          f"blocks bq={bq}, bk={bk}")
-    if _on_cpu(q, k, v):
-        return _ref.flash_attention_ref(q, k, v, causal=causal)
-    return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+    meta = _on_meta(q, k, v)
+    cpu = not meta and _on_cpu(q, k, v)
+    with kernel_unit("flash_attention", q, k, v, causal=causal):
+        if meta:
+            return v.new_empty((q.shape[0], sq, v.shape[2]))
+        if cpu:
+            return _ref.flash_attention_ref(q, k, v, causal=causal)
+        return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal)
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: torch.Tensor,
@@ -114,6 +128,13 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_ssm: torch.T
     if x.dim() != 3 or chunk < 1 or x.shape[1] % chunk:
         raise ValueError(f"ssd_chunk: want x (BH, S, P) with S a multiple of chunk={chunk}, "
                          f"got {tuple(x.shape)}")
-    if _on_cpu(x, dt, a, b_ssm, c_ssm):
-        return _ref.ssd_chunked_ref(x, dt, a, b_ssm, c_ssm, chunk)
-    return _ssd.ssd_chunk_cuda(*(t.contiguous() for t in (x, dt, a, b_ssm, c_ssm)), chunk)
+    meta = _on_meta(x, dt, a, b_ssm, c_ssm)
+    cpu = not meta and _on_cpu(x, dt, a, b_ssm, c_ssm)
+    with kernel_unit("ssd_chunk", x, dt, a, b_ssm, c_ssm, chunk=chunk):
+        if meta:
+            bh, _, p_dim = x.shape
+            return (x.new_empty(x.shape, dtype=torch.float32),
+                    x.new_empty((bh, p_dim, b_ssm.shape[2]), dtype=torch.float32))
+        if cpu:
+            return _ref.ssd_chunked_ref(x, dt, a, b_ssm, c_ssm, chunk)
+        return _ssd.ssd_chunk_cuda(*(t.contiguous() for t in (x, dt, a, b_ssm, c_ssm)), chunk)

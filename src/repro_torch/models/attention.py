@@ -204,6 +204,11 @@ def _valid_keys(pos: int, s_max: int, device) -> torch.Tensor:
     return (torch.arange(s_max, device=device) <= pos) | (pos >= s_max)
 
 
+def _at(pos: int, device) -> torch.Tensor:
+    """(1,) int64 position ``pos``, filled on ``device`` (no host-to-device copy)."""
+    return torch.full((1,), pos, dtype=torch.long, device=device)
+
+
 def attn_decode(cfg, p: Params, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 pos: int, *, window: int, rope_theta: float) -> torch.Tensor:
     """One-token decode: x (B, 1, d); the cache (B, S_max, KV, hd) is a rotating
@@ -215,7 +220,7 @@ def attn_decode(cfg, p: Params, x: torch.Tensor, k_cache: torch.Tensor, v_cache:
     q = _split_heads(x @ p.wq, h)
     k_new = _split_heads(x @ p.wk, kv)
     v_new = _split_heads(x @ p.wv, kv)
-    cos, sin = rope_cos_sin(torch.tensor([pos], device=x.device), hd, rope_theta)
+    cos, sin = rope_cos_sin(_at(pos, x.device), hd, rope_theta)
     q = apply_rope(q, cos[None], sin[None])
     k_new = apply_rope(k_new, cos[None], sin[None])
 
@@ -237,7 +242,7 @@ def cross_decode(cfg, p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tens
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(x @ p.wq, h)
-    cos, sin = rope_cos_sin(torch.tensor([pos], device=x.device), hd, rope_theta)
+    cos, sin = rope_cos_sin(_at(pos, x.device), hd, rope_theta)
     q = apply_rope(q, cos[None], sin[None])
     qg = q.reshape(b, 1, kv, h // kv, hd)
     scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k).float()
@@ -299,8 +304,8 @@ def mla_decode(cfg, p: Params, x, c_cache, kr_cache, pos: int, *, rope_theta) ->
     s_max = c_cache.shape[1]
     q = (x @ p.wq).reshape(b, 1, h, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
-    c_new, kr_new = mla_latent(cfg, p, x, torch.tensor([pos], device=x.device), rope_theta)
-    cos, sin = rope_cos_sin(torch.tensor([pos], device=x.device), rd, rope_theta)
+    c_new, kr_new = mla_latent(cfg, p, x, _at(pos, x.device), rope_theta)
+    cos, sin = rope_cos_sin(_at(pos, x.device), rd, rope_theta)
     q_rope = apply_rope(q_rope, cos[None], sin[None])
     slot = min(pos, s_max - 1)
     c_cache[:, slot] = c_new[:, 0]

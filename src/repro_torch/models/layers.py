@@ -188,7 +188,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _const(c: float, x: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(c, dtype=x.dtype, device=x.device)
+    """``c`` rounded to x's dtype, filled on x's device (no host-to-device copy)."""
+    return torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -175,14 +175,15 @@ def _remat_call(cfg, fn, *args):
     """``fn(*args)`` under the config's rematerialisation while gradients are
     recorded (the JAX package's ``_remat_wrap``): ``"none"`` keeps every
     activation; ``"nothing"`` keeps only ``fn``'s inputs and runs ``fn``'s forward
-    again in the backward; ``"dots"`` keeps the matrix products' outputs too."""
+    again in the backward; ``"dots"`` keeps the matrix products' outputs too. The
+    blocks draw no random numbers, so no RNG state is stashed for the recompute."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
     if cfg.remat == "dots":
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
                           context_fn=partial(create_selective_checkpoint_contexts, _dots_policy))
     if cfg.remat == "nothing":
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
@@ -367,6 +368,47 @@ def _attn_cache_entry(k: torch.Tensor, v: torch.Tensor, window: int, s_total: in
     return {"k": k_c, "v": v_c}
 
 
+def _block_prefill(cfg, p: Block, x, positions, s_total: int, c_len: int, enc_out,
+                   enc_positions):
+    """One block of :func:`prefill` → (x, the block's cache entry)."""
+    spec = p.spec
+    h = apply_norm(cfg, x, p.norm1)
+    if spec.mixer == "attn":
+        k, v = attn_kv_for_cache(cfg, p.mixer, h, positions, spec.rope_theta)
+        entry = _attn_cache_entry(k, v, spec.window, s_total, c_len)
+        h = attn_apply(cfg, p.mixer, h, positions=positions, causal=True,
+                       window=spec.window, rope_theta=spec.rope_theta)
+    elif spec.mixer == "mla":
+        c_lat, kr = mla_latent(cfg, p.mixer, h, positions, spec.rope_theta)
+        if c_len > s_total:
+            pad = (0, 0, 0, c_len - s_total)
+            c_lat, kr = (torch.nn.functional.pad(c_lat, pad),
+                         torch.nn.functional.pad(kr, pad))
+        entry = {"c": c_lat, "kr": kr}
+        h = mla_apply(cfg, p.mixer, h, positions=positions, rope_theta=spec.rope_theta)
+    else:
+        h, conv_state, st = mamba_prefill(cfg, p.mixer, h)
+        entry = {"conv_x": conv_state["x"], "conv_B": conv_state["B"],
+                 "conv_C": conv_state["C"], "state": st}
+    x = x + h
+
+    if enc_out is not None and hasattr(p, "cross"):
+        hc = apply_norm(cfg, x, p.norm_cross)
+        entry["cross_k"], entry["cross_v"] = attn_kv_for_cache(
+            cfg, p.cross, enc_out, enc_positions, spec.rope_theta)
+        x = x + attn_apply(cfg, p.cross, hc, positions=positions, causal=False, window=0,
+                           rope_theta=spec.rope_theta, kv_override=(enc_out, enc_positions))
+
+    if spec.ffn:
+        h2 = apply_norm(cfg, x, p.norm2)
+        if spec.moe:
+            h2, _ = moe_apply(cfg, p.moe, h2)
+        else:
+            h2 = mlp_apply(cfg, p.ffn, h2)
+        x = x + h2
+    return x, entry
+
+
 def prefill(cfg, params: Model, batch,
             cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the context through the model, returning (last-token logits, cache).
@@ -378,41 +420,7 @@ def prefill(cfg, params: Model, batch,
 
     entries = []
     for p in params.layers:
-        spec = p.spec
-        h = apply_norm(cfg, x, p.norm1)
-        if spec.mixer == "attn":
-            k, v = attn_kv_for_cache(cfg, p.mixer, h, positions, spec.rope_theta)
-            entry = _attn_cache_entry(k, v, spec.window, s_total, c_len)
-            h = attn_apply(cfg, p.mixer, h, positions=positions, causal=True,
-                           window=spec.window, rope_theta=spec.rope_theta)
-        elif spec.mixer == "mla":
-            c_lat, kr = mla_latent(cfg, p.mixer, h, positions, spec.rope_theta)
-            if c_len > s_total:
-                pad = (0, 0, 0, c_len - s_total)
-                c_lat, kr = (torch.nn.functional.pad(c_lat, pad),
-                             torch.nn.functional.pad(kr, pad))
-            entry = {"c": c_lat, "kr": kr}
-            h = mla_apply(cfg, p.mixer, h, positions=positions, rope_theta=spec.rope_theta)
-        else:
-            h, conv_state, st = mamba_prefill(cfg, p.mixer, h)
-            entry = {"conv_x": conv_state["x"], "conv_B": conv_state["B"],
-                     "conv_C": conv_state["C"], "state": st}
-        x = x + h
-
-        if enc_out is not None and hasattr(p, "cross"):
-            hc = apply_norm(cfg, x, p.norm_cross)
-            entry["cross_k"], entry["cross_v"] = attn_kv_for_cache(
-                cfg, p.cross, enc_out, enc_positions, spec.rope_theta)
-            x = x + attn_apply(cfg, p.cross, hc, positions=positions, causal=False, window=0,
-                               rope_theta=spec.rope_theta, kv_override=(enc_out, enc_positions))
-
-        if spec.ffn:
-            h2 = apply_norm(cfg, x, p.norm2)
-            if spec.moe:
-                h2, _ = moe_apply(cfg, p.moe, h2)
-            else:
-                h2 = mlp_apply(cfg, p.ffn, h2)
-            x = x + h2
+        x, entry = _block_prefill(cfg, p, x, positions, s_total, c_len, enc_out, enc_positions)
         entries.append(entry)
 
     x = apply_norm(cfg, x, params.final_norm)
