@@ -3492,7 +3492,9 @@ def dryrun_matrix(smi: str) -> dict:
     meshes into a fresh ``artifacts/dryrun_torch/``: one process per arch
     (``--arch A --both-meshes --force``), all started together, each counting its
     cells on meta tensors on the host. DRYRUN_OK cells ok and DRYRUN_SKIPPED
-    skipped; one log line per cell with its terms on the H100 and its bottleneck."""
+    skipped, every ok cell with collectives from the partitioner count
+    (``analysis/partition.py``); one log line per cell with its terms on the H100,
+    its bottleneck and the partitioner's share of its collective bytes."""
     import shutil
 
     from repro_torch.configs import ARCHS
@@ -3515,18 +3517,26 @@ def dryrun_matrix(smi: str) -> dict:
     status = {k: sum(c["status"] == k for c in cells) for k in ("ok", "skipped", "error")}
     if status != {"ok": DRYRUN_OK, "skipped": DRYRUN_SKIPPED, "error": 0}:
         raise AssertionError(f"dry-run matrix: {status} over {len(cells)} cells")
+    no_partitioner = []
     for c in cells:
         tag = f"{c['arch']} {c['shape']} {'pod2' if c['multi_pod'] else 'pod1'}"
         if c["status"] != "ok":
             log(f"[dryrun] {tag}: skipped ({c['reason']})")
             continue
         r = c["roofline_h100"]
+        part = c["collectives_partitioner"]["total_bytes"]
+        if not part > 0:
+            no_partitioner.append(tag)
         log(f"[dryrun] {tag}: {c['n_chips']} devices, per device {c['flops_per_device']:.4g} "
             f"FLOPs, {c['bytes_per_device']:.4g} bytes, {c['coll_bytes_per_device']:.4g} "
-            f"collective bytes; H100 t_compute {r['t_compute_s']:.4g} s, t_memory "
-            f"{r['t_memory_s']:.4g} s, t_collective {r['t_collective_s']:.4g} s: "
-            f"{r['bottleneck']}; kernel units {c['kernel_units']}; argument bytes "
-            f"{c['memory_analysis']['argument_bytes']:,}; counted in {c['compile_s']} s")
+            f"collective bytes ({part:.4g} from the partitioner, "
+            f"{part / c['coll_bytes_per_device']:.3f} of them); H100 t_compute "
+            f"{r['t_compute_s']:.4g} s, t_memory {r['t_memory_s']:.4g} s, t_collective "
+            f"{r['t_collective_s']:.4g} s: {r['bottleneck']} (TPU figures: "
+            f"{c['roofline']['bottleneck']}); kernel units {c['kernel_units']}; argument "
+            f"bytes {c['memory_analysis']['argument_bytes']:,}; counted in {c['compile_s']} s")
+    if no_partitioner:
+        raise AssertionError(f"dry-run cells with no partitioner collectives: {no_partitioner}")
     slowest = max((c for c in cells if c["status"] == "ok"), key=lambda c: c["compile_s"])
     log(f"[dryrun] matrix on the host of {smi}: {status['ok']} ok, {status['skipped']} skipped, "
         f"{wall_s:.1f} s wall over {len(procs)} processes (budget {DRYRUN_BUDGET_S} s"
@@ -3567,12 +3577,30 @@ def dryrun_counts(torch, dev, smi: str) -> dict:
     once cold and once warm (host clock, a sync), then twice counted on CUDA
     tensors (its kernel launched exactly ``launches`` times in each, read from the
     counts zeroed just before) and once counted on meta stand-ins of the same
-    shapes: FLOPs, bytes and kernel units equal. The warm ms beside
-    ``roofline_terms``' bound of that count on the H100 → the launches by kernel."""
+    shapes: FLOPs, bytes, kernel units and collectives equal. Then once more on each
+    under the single-pod production mesh's layout (``analysis/partition.py``): the
+    partitioner's collectives equal. The warm ms beside ``roofline_terms``' bound of
+    the count on the H100 → the launches by kernel."""
     from repro_torch.analysis.cost import CostCounter
     from repro_torch.analysis.roofline import HW_H100, roofline_terms
     from repro_torch.configs import get_arch
     from repro_torch.train.data import synth_batch
+
+    def partitioned(cfg, step, args):
+        """The step counted under the production mesh's layout → its partitioner
+        collectives."""
+        from repro_torch.analysis.partition import Layout
+        from repro_torch.distributed.specs import batch_pspecs, param_pspecs
+        from repro_torch.launch.mesh import axes_for, make_production_mesh
+
+        mesh = make_production_mesh()
+        axes = axes_for(mesh, sequence_parallel=cfg.sequence_parallel)
+        model, batch = args[0], args[-1]
+        layout = Layout(mesh, axes, model, param_pspecs(model, mesh, axes),
+                        batch_pspecs(batch, mesh, axes))
+        with CostCounter(layout=layout) as counter:
+            step(*args)
+        return counter.partitioner_collectives
 
     launches = {}
     for tag, arch, kind, kernel, want in DRYRUN_STEPS:
@@ -3597,6 +3625,8 @@ def dryrun_counts(torch, dev, smi: str) -> dict:
                 torch.cuda.synchronize()
             counted.append(((time.perf_counter() - t0) * 1e3, card,
                             launch_counts([kernel])[kernel]))
+        card_parts = partitioned(cfg, step, args)
+        torch.cuda.synchronize()
         del step, args
         torch.cuda.empty_cache()
         meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
@@ -3606,16 +3636,20 @@ def dryrun_counts(torch, dev, smi: str) -> dict:
         with CostCounter() as meta:
             step(*args)
         meta_ms = (time.perf_counter() - t0) * 1e3
+        meta_parts = partitioned(cfg, step, args)
         del step, args
         for _, card, n in counted:
-            got = (card.flops, card.bytes, card.units)
-            if got != (meta.flops, meta.bytes, meta.units):
+            got = (card.flops, card.bytes, card.units, card.collectives)
+            want_count = (meta.flops, meta.bytes, meta.units, meta.collectives)
+            if got != want_count:
                 raise AssertionError(f"{tag}: the card's count {got} differs from the meta "
-                                     f"count {(meta.flops, meta.bytes, meta.units)}: "
-                                     f"{json.dumps(count_diff(card, meta))}")
+                                     f"count {want_count}: {json.dumps(count_diff(card, meta))}")
             if n != want or card.units.get(kernel) != want:
                 raise AssertionError(f"{tag}: {kernel} launched {n} times ({card.units} "
                                      f"units), want {want}")
+        if card_parts != meta_parts or not card_parts["total_bytes"] > 0:
+            raise AssertionError(f"{tag}: the partitioner's count on the card {card_parts} "
+                                 f"differs from the meta count {meta_parts}")
         n = counted[-1][2]
         terms = roofline_terms(card.flops, card.bytes, 0.0, HW_H100)
         warm_ms = times[1]
@@ -3628,7 +3662,10 @@ def dryrun_counts(torch, dev, smi: str) -> dict:
             f"{terms['t_memory_s'] * 1e3:.3f} ms), warm / bound "
             f"{warm_ms / (terms['t_bound_s'] * 1e3):.2f}; the counted runs "
             f"{counted[0][0]:.1f} and {counted[1][0]:.1f} ms, the meta count {meta_ms:.1f} ms; "
-            f"most bytes {json.dumps(top)}")
+            f"most bytes {json.dumps(top)}; under the (16, 16) mesh's layout the partitioner "
+            f"counts {card_parts['total_bytes']:,} collective bytes a device "
+            f"(all-reduce {card_parts['all-reduce_bytes']:,}, all-gather "
+            f"{card_parts['all-gather_bytes']:,}), equal on meta")
         launches[kernel] = n
         del batch, meta_batch
         torch.cuda.empty_cache()

@@ -26,25 +26,32 @@ result to :func:`collective` under ``roofline.collective_bytes``'s keys
 reduce-scatter, ``all_to_all`` → all-to-all, ``ppermute`` → collective-permute),
 by its result bytes per device of the collective's own mesh.
 
-What XLA counts and this does not: elementwise FLOPs, work that every device of
-a mesh repeats, and the collectives XLA's partitioner inserts (the FSDP
-all-gathers and tensor-parallel all-reduces of a sharded step). A one-card port
-runs none of those, so its collective bytes cover only the collectives its own
-code runs (the "a2a" MoE dispatch, split-KV decode, the gradient mean, GPipe)
-and are a lower bound on a real mesh's. FLOPs and bytes are global: per device,
-the dry run divides them by the mesh's device count (the sharded ideal).
+**The partitioner's collectives.** A sharded step also needs the collectives
+XLA's partitioner inserts into the JAX package's step (the FSDP all-gathers, the
+tensor-parallel all-reduces, the gradient reductions). A one-card port runs none
+of them; ``CostCounter(layout=Layout(...))`` counts them all the same, derived
+from the spec rules by :class:`~.partition.Partitioner` op by op in the same run
+(``analysis/partition.py`` states the rules), and :attr:`CostCounter.collectives`
+then holds the program's collectives and the partitioner's. A bare
+``CostCounter()`` counts the program's alone.
+
+What XLA counts and this does not: elementwise FLOPs and work that every device
+of a mesh repeats. FLOPs and bytes are global: per device, the dry run divides
+them by the mesh's device count (the sharded ideal); collective bytes are per
+device already.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from .partition import Layout, Partitioner
 from .roofline import COLLECTIVES, kernel_costs
 
 _aten = torch.ops.aten
@@ -101,10 +108,16 @@ class CostCounter(TorchDispatchMode):
     """``with CostCounter() as c: step(...)`` → ``c.flops``, ``c.bytes``,
     ``c.collectives`` (``collective_bytes``'s keys, per device), ``c.units``
     (kernel-library calls by name) and ``c.by_op`` ({aten op: [calls, flops,
-    bytes]}). One counter at a time: entering a second one raises."""
+    bytes]}). One counter at a time: entering a second one raises.
 
-    def __init__(self):
+    With a :class:`~.partition.Layout`, the counter also counts the collectives a
+    partitioner adds to the step laid out so (``analysis/partition.py``):
+    ``c.collectives`` then holds the program's and the partitioner's, and
+    ``c.partitioner_collectives`` the partitioner's alone."""
+
+    def __init__(self, layout: Optional[Layout] = None):
         super().__init__()
+        self.partition = None if layout is None else Partitioner(layout)
         self.flops = 0
         self.bytes = 0
         self.units: Dict[str, int] = {}
@@ -121,6 +134,8 @@ class CostCounter(TorchDispatchMode):
 
     def __exit__(self, *exc):
         _ACTIVE.remove(self)
+        if self.partition is not None:
+            self.partition.close()
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -139,13 +154,28 @@ class CostCounter(TorchDispatchMode):
         row[0] += 1
         row[1] += flops
         row[2] += nbytes
+        if self.partition is not None:
+            self.partition.op(func, args, kwargs, out)
         return out
 
     @property
     def collectives(self) -> Dict[str, int]:
-        return {**{f"{k}_bytes": v for k, v in self._coll.items()},
-                **{f"{k}_count": v for k, v in self._coll_n.items()},
-                "total_bytes": sum(self._coll.values())}
+        coll, n = dict(self._coll), dict(self._coll_n)
+        if self.partition is not None:
+            for k in COLLECTIVES:
+                coll[k] += self.partition.bytes[k]
+                n[k] += self.partition.count[k]
+        return {**{f"{k}_bytes": v for k, v in coll.items()},
+                **{f"{k}_count": v for k, v in n.items()},
+                "total_bytes": sum(coll.values())}
+
+    @property
+    def partitioner_collectives(self) -> Dict[str, int]:
+        """The partitioner's part of :attr:`collectives` (zeros without a layout)."""
+        if self.partition is None:
+            return {**{f"{k}_bytes": 0 for k in COLLECTIVES},
+                    **{f"{k}_count": 0 for k in COLLECTIVES}, "total_bytes": 0}
+        return self.partition.totals()
 
     def totals(self) -> Dict[str, int]:
         return {"flops": self.flops, "bytes": self.bytes,
@@ -164,6 +194,8 @@ def kernel_unit(name: str, *tensors: torch.Tensor, **kw):
     counter.flops += costs["flops"]
     counter.bytes += costs["bytes"]
     counter.units[name] = counter.units.get(name, 0) + 1
+    if counter.partition is not None:
+        counter.partition.reduce_inputs(tensors)
     counter._inside += 1
     try:
         yield
@@ -175,7 +207,19 @@ def collective(name: str, result: torch.Tensor, n_devices: int) -> torch.Tensor:
     """Report a collective's result (laid out on a mesh of ``n_devices``) to the
     counter entered, if any; returns ``result``."""
     if _ACTIVE and not _ACTIVE[-1]._inside:
+        counter = _ACTIVE[-1]
         kind = COLLECTIVE_KIND[name]
-        _ACTIVE[-1]._coll[kind] += result.numel() * result.element_size() // n_devices
-        _ACTIVE[-1]._coll_n[kind] += 1
+        counter._coll[kind] += result.numel() * result.element_size() // n_devices
+        counter._coll_n[kind] += 1
+        if counter.partition is not None:
+            counter.partition.forget(result)
     return result
+
+
+def constrain(x: torch.Tensor, logical) -> torch.Tensor:
+    """``distributed.ctx.shard``'s body: ``x`` itself, unless the counter entered
+    follows a layout, which then meets the constraint (``Partitioner.constrain``)."""
+    counter = _ACTIVE[-1] if _ACTIVE else None
+    if counter is None or counter.partition is None or counter._inside:
+        return x
+    return counter.partition.constrain(x, logical)

@@ -22,15 +22,17 @@ groups counts (R − R') × the probe, exactly (FLOPs; bytes too outside ``train
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
+from ..distributed.ctx import shard
 from ..models.layers import torch_dtype
 from ..models.model import (ENCODER_SPEC, _block_apply, _block_decode, _block_prefill,
                             _positions, _remat_call)
 from .cost import CostCounter
+from .partition import Layout
 
 META = torch.device("meta")
 
@@ -39,13 +41,13 @@ def _meta(shape, dtype, grad: bool = False) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device=META, requires_grad=grad)
 
 
-def _count(fn, *args) -> Dict[str, float]:
-    with CostCounter() as c:
+def _count(fn, *args, layout=None) -> Dict[str, float]:
+    with CostCounter(layout=layout) as c:
         fn(*args)
     return {k: float(v) for k, v in c.totals().items()}
 
 
-def _train_probe(cfg, fn, layers, x_shape, dt) -> Dict[str, float]:
+def _train_probe(cfg, fn, layers, x_shape, dt, layout=None) -> Dict[str, float]:
     """``fn(x)`` under the config's remat, and its VJP with respect to ``x`` and
     the parameters of ``layers``."""
     params = [p for layer in layers for p in layer.parameters()]
@@ -59,7 +61,7 @@ def _train_probe(cfg, fn, layers, x_shape, dt) -> Dict[str, float]:
             torch.autograd.grad(y, [x] + params, grad_outputs=_meta(x_shape, dt),
                                 allow_unused=True)
 
-    return _count(probe)
+    return _count(probe, layout=layout)
 
 
 def probe_costs(
@@ -72,11 +74,13 @@ def probe_costs(
     p_specs,
     cache=None,
     cache_specs=None,
+    layout: Optional[Layout] = None,
 ) -> List[Tuple[int, Dict[str, float]]]:
     """[(extra_repeats, {flops, bytes, coll_bytes}), ...], global counts on meta
     tensors, under the mesh and axes the caller has entered. ``mesh``, ``axes``,
-    ``p_specs`` and ``cache_specs`` keep the reference's contract; on one device a
-    probe's layout changes no count."""
+    ``p_specs`` and ``cache_specs`` keep the reference's contract. With the step's
+    ``layout`` (``analysis/partition.py``), each probe's ``coll_bytes`` also holds the
+    collectives a partitioner adds to it, by the same rules."""
     out: List[Tuple[int, Dict[str, float]]] = []
     dt = torch_dtype(cfg)
     b, s_total, d = shape.batch, shape.seq, cfg.d_model
@@ -88,21 +92,25 @@ def probe_costs(
     if kind in ("train", "prefill"):
         positions = _positions(s_total, META)
 
+        # a group's input has the layout every block leaves the residual stream in
         def group_fwd(x):
+            x = shard(x, "dp", "sp", None)
             for layer in group:
                 x, _ = _block_apply(cfg, layer.spec, layer, x, positions, enc_out=enc_out,
                                     enc_positions=enc_pos)
             return x
 
         def group_prefill(x):
+            x = shard(x, "dp", "sp", None)
             for layer in group:
                 x, _ = _block_prefill(cfg, layer, x, positions, s_total, s_total, enc_out,
                                       enc_pos)
 
         if kind == "train":
-            costs = _train_probe(cfg, group_fwd, group, (b, s_total, d), dt)
+            costs = _train_probe(cfg, group_fwd, group, (b, s_total, d), dt, layout)
         else:
-            costs = _count(torch.no_grad()(group_prefill), _meta((b, s_total, d), dt))
+            costs = _count(torch.no_grad()(group_prefill), _meta((b, s_total, d), dt),
+                           layout=layout)
         out.append((cfg.n_repeats - 1, costs))
 
         if cfg.is_encdec and cfg.n_enc_layers > 1:
@@ -112,12 +120,12 @@ def probe_costs(
                           causal=False)
 
             def enc_fwd(x):
-                return fwd(x)[0]
+                return fwd(shard(x, "dp", "sp", None))[0]
 
             if kind == "train":
-                costs = _train_probe(cfg, enc_fwd, [enc_layer], xe_shape, dt)
+                costs = _train_probe(cfg, enc_fwd, [enc_layer], xe_shape, dt, layout)
             else:
-                costs = _count(torch.no_grad()(enc_fwd), _meta(xe_shape, dt))
+                costs = _count(torch.no_grad()(enc_fwd), _meta(xe_shape, dt), layout=layout)
             out.append((cfg.n_enc_layers - 1, costs))
         return out
 
@@ -129,5 +137,5 @@ def probe_costs(
         for layer, c in zip(group, group_cache):
             x, _ = _block_decode(cfg, layer.spec, layer, c, x, s_total - 1, enc_out)
 
-    out.append((cfg.n_repeats - 1, _count(dec_group, _meta((b, 1, d), dt))))
+    out.append((cfg.n_repeats - 1, _count(dec_group, _meta((b, 1, d), dt), layout=layout)))
     return out

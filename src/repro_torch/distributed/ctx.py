@@ -22,6 +22,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..analysis.cost import constrain
+
 
 @dataclass(frozen=True)
 class MeshAxes:
@@ -120,6 +122,8 @@ def set_mesh(mesh: Optional[Mesh]):
 
 
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """The identity: on one device there is no layout to constrain (the JAX
-    package's ``with_sharding_constraint``). The port's models carry no calls."""
-    return x
+    """The JAX package's ``with_sharding_constraint``, called where its models call
+    it: on one device there is no layout to constrain, so ``x`` itself, unless a
+    cost counter follows a layout (``analysis/partition.py``), which then counts
+    the collectives the constraint calls for."""
+    return constrain(x, logical)

@@ -29,6 +29,7 @@ from pathlib import Path
 import torch
 
 from ..analysis.cost import CostCounter
+from ..analysis.partition import Layout
 from ..analysis.probes import probe_costs
 from ..analysis.roofline import HW, HW_H100, model_flops, roofline_terms
 from ..configs import ARCHS, SHAPES, shape_applicable
@@ -149,7 +150,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig | No
             specs["cache"]["pos"] = shape.seq - 1
         t_lower = time.time() - t0
 
-        with CostCounter() as counter:
+        cache = specs.get("cache") if shape.kind == "decode" else None
+        layout = Layout(mesh, axes, args[0], arg_specs[0], arg_specs[-1], cache=cache,
+                        cache_specs=arg_specs[1] if cache is not None else None)
+        with CostCounter(layout=layout) as counter:
             outs = step(*args)
         t_compile = time.time() - t0 - t_lower
 
@@ -170,6 +174,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig | No
             cfg, shape, shape.kind, mesh, axes, args[0], arg_specs[0],
             cache=specs.get("cache"),
             cache_specs=arg_specs[1] if shape.kind == "decode" else None,
+            layout=layout,
         )
 
     n_chips = mesh.size
@@ -205,6 +210,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, tcfg: TrainConfig | No
         "kernel_units": dict(counter.units),
         "probes": probe_list,
         "collectives": coll,
+        "collectives_partitioner": counter.partitioner_collectives,
         "memory_analysis": {
             "argument_bytes": args_bytes,
             "output_bytes": out_bytes,

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed.ctx import shard
 from ..kernels import ops
 from ..kernels.flash_attention import HEAD_DIMS
 from .layers import Init, Params, apply_rope, recompute_grads, rope_cos_sin
@@ -165,13 +166,20 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(b, s, n, -1)
 
 
+def _shard_heads(cfg, x: torch.Tensor) -> torch.Tensor:
+    """Heads over the model axis, or (``shard_attn_heads`` off) replicated."""
+    if cfg.shard_attn_heads:
+        return shard(x, "dp", None, "tp", None)
+    return shard(x, "dp", None, None, None)
+
+
 def attn_apply(cfg, p: Params, x: torch.Tensor, *, positions: torch.Tensor, causal: bool,
                window: int, rope_theta: float,
                kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """Full GQA block (train/prefill). kv_override supplies cross-attention memory."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cos, sin = rope_cos_sin(positions, hd, rope_theta)
-    q = apply_rope(_split_heads(x @ p.wq, h), cos, sin)
+    q = apply_rope(_shard_heads(cfg, _split_heads(x @ p.wq, h)), cos, sin)
     if kv_override is None:
         mem, mcos, msin = x, cos, sin
     else:
@@ -179,7 +187,9 @@ def attn_apply(cfg, p: Params, x: torch.Tensor, *, positions: torch.Tensor, caus
         mcos, msin = rope_cos_sin(mem_positions, hd, rope_theta)
     k = apply_rope(_split_heads(mem @ p.wk, kv), mcos, msin)
     v = _split_heads(mem @ p.wv, kv)
-    out = attention(q, k, v, causal=causal, window=window)
+    k = shard(k, "dp", None, None, None)
+    v = shard(v, "dp", None, None, None)
+    out = _shard_heads(cfg, attention(q, k, v, causal=causal, window=window))
     b, s = out.shape[:2]
     return out.reshape(b, s, h * hd) @ p.wo
 
@@ -241,7 +251,7 @@ def cross_decode(cfg, p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tens
     """One-token cross-attention against the cached encoder K/V (no mask)."""
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _split_heads(x @ p.wq, h)
+    q = _shard_heads(cfg, _split_heads(x @ p.wq, h))
     cos, sin = rope_cos_sin(_at(pos, x.device), hd, rope_theta)
     q = apply_rope(q, cos[None], sin[None])
     qg = q.reshape(b, 1, kv, h // kv, hd)
@@ -282,13 +292,13 @@ def mla_apply(cfg, p: Params, x, *, positions, rope_theta) -> torch.Tensor:
     b, s, _ = x.shape
     h = cfg.n_heads
     nd, vd, rd = cfg.qk_nope_dim, cfg.v_head_dim, cfg.qk_rope_dim
-    q = (x @ p.wq).reshape(b, s, h, nd + rd)
+    q = shard((x @ p.wq).reshape(b, s, h, nd + rd), "dp", None, "tp", None)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     cos, sin = rope_cos_sin(positions, rd, rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     c, k_rope = mla_latent(cfg, p, x, positions, rope_theta)
-    k_nope = (c @ p.w_uk).reshape(b, s, h, nd)
-    v = (c @ p.w_uv).reshape(b, s, h, vd)
+    k_nope = shard((c @ p.w_uk).reshape(b, s, h, nd), "dp", None, "tp", None)
+    v = shard((c @ p.w_uv).reshape(b, s, h, vd), "dp", None, "tp", None)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], dim=-1)
     out = attention(q_full, k_full, v, causal=True, window=0)

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.ctx import shard
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -225,7 +227,7 @@ def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = act(x @ p.w_gate) * (x @ p.w_up)
     else:
         h = gelu(x @ p.w_up)
-    return h @ p.w_out
+    return shard(h, "dp", None, "tp") @ p.w_out
 
 
 # -- embedding / logits / loss -------------------------------------------------
@@ -236,12 +238,12 @@ def embed_params(cfg, init: Init, dtype) -> Params:
 
 
 def embed_apply(cfg, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p.embedding[tokens]
+    return shard(p.embedding[tokens], "dp", None, None)
 
 
 def logits_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     """(B, S, d) → (B, S, vocab_padded): the tied embedding, padded columns included."""
-    return x @ p.embedding.T.to(x.dtype)
+    return shard(x @ p.embedding.T.to(x.dtype), "dp", None, "tp")
 
 
 def cross_entropy(cfg, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

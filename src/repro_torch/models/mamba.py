@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.ctx import shard
 from ..kernels import ops
 from .layers import Init, Params, recompute_grads, rms_norm, silu
 
@@ -207,7 +208,7 @@ def ssd_reference(x, dt, a, b_ssm, c_ssm):
 def _ssd_run(cfg, p: Params, z, x_conv, b_conv, c_conv, dt):
     bsz, s, _ = x_conv.shape
     h, pdim = cfg.ssm_nheads, cfg.ssm_headdim
-    x4 = x_conv.reshape(bsz, s, h, pdim)
+    x4 = shard(x_conv.reshape(bsz, s, h, pdim), "dp", None, "tp", None)
     b4 = b_conv.reshape(bsz, s, cfg.ssm_ngroups, cfg.d_state)
     c4 = c_conv.reshape(bsz, s, cfg.ssm_ngroups, cfg.d_state)
     a = -torch.exp(p.A_log)

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import BlockSpec
 from ..device import resolve_device
+from ..distributed.ctx import shard
 from .attention import (
     attn_apply,
     attn_decode,
@@ -133,8 +134,15 @@ def init_params(cfg, seed: int = 0, device=None) -> Model:
 
 def _block_apply(cfg, spec, p: Block, x, positions, *, causal: bool = True, enc_out=None,
                  enc_positions=None):
-    """Returns (x, aux_loss)."""
+    """Returns (x, aux_loss). The residual stream's layout is pinned (sequence over
+    the model axis under sequence parallelism) after each sub-block, or with
+    ``sp_boundary="layer"`` once per block, as the JAX package pins it."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sub = cfg.sp_boundary != "layer"
+
+    def reshard(t):
+        return shard(t, "dp", "sp", None) if sub else t
+
     h = apply_norm(cfg, x, p.norm1)
     if spec.mixer == "attn":
         h = attn_apply(cfg, p.mixer, h, positions=positions, causal=causal,
@@ -143,13 +151,13 @@ def _block_apply(cfg, spec, p: Block, x, positions, *, causal: bool = True, enc_
         h = mla_apply(cfg, p.mixer, h, positions=positions, rope_theta=spec.rope_theta)
     else:
         h = mamba_apply(cfg, p.mixer, h)
-    x = x + h
+    x = reshard(x + h)
 
     if enc_out is not None and hasattr(p, "cross"):
         h = apply_norm(cfg, x, p.norm_cross)
         h = attn_apply(cfg, p.cross, h, positions=positions, causal=False, window=0,
                        rope_theta=spec.rope_theta, kv_override=(enc_out, enc_positions))
-        x = x + h
+        x = reshard(x + h)
 
     if spec.ffn:
         h = apply_norm(cfg, x, p.norm2)
@@ -158,6 +166,7 @@ def _block_apply(cfg, spec, p: Block, x, positions, *, causal: bool = True, enc_
         else:
             h = mlp_apply(cfg, p.ffn, h)
         x = x + h
+    x = shard(x, "dp", "sp", None)         # block boundary: always pinned
     return grad_dtype_barrier(x), aux      # caps fp32 gradient contagion per block
 
 
@@ -193,7 +202,7 @@ def _positions(n: int, device) -> torch.Tensor:
 
 def _run_encoder(cfg, params: Model, frames: torch.Tensor) -> torch.Tensor:
     """Whisper-style encoder over stub frame embeddings (B, F, d)."""
-    x = frames.to(torch_dtype(cfg))
+    x = shard(frames.to(torch_dtype(cfg)), "dp", None, None)
     positions = _positions(frames.shape[1], x.device)
     enc = params.encoder
     for layer in enc.layers:
@@ -207,7 +216,7 @@ def _embed_input(cfg, params: Model, batch):
     x = embed_apply(cfg, params.embed, batch["tokens"])
     if cfg.frontend == "prefix_embeds":
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
-    return x, _positions(x.shape[1], x.device)
+    return shard(x, "dp", "sp", None), _positions(x.shape[1], x.device)
 
 
 def _encode(cfg, params: Model, batch):
@@ -390,7 +399,7 @@ def _block_prefill(cfg, p: Block, x, positions, s_total: int, c_len: int, enc_ou
         h, conv_state, st = mamba_prefill(cfg, p.mixer, h)
         entry = {"conv_x": conv_state["x"], "conv_B": conv_state["B"],
                  "conv_C": conv_state["C"], "state": st}
-    x = x + h
+    x = shard(x + h, "dp", "sp", None)
 
     if enc_out is not None and hasattr(p, "cross"):
         hc = apply_norm(cfg, x, p.norm_cross)
@@ -398,6 +407,7 @@ def _block_prefill(cfg, p: Block, x, positions, s_total: int, c_len: int, enc_ou
             cfg, p.cross, enc_out, enc_positions, spec.rope_theta)
         x = x + attn_apply(cfg, p.cross, hc, positions=positions, causal=False, window=0,
                            rope_theta=spec.rope_theta, kv_override=(enc_out, enc_positions))
+        x = shard(x, "dp", "sp", None)
 
     if spec.ffn:
         h2 = apply_norm(cfg, x, p.norm2)
@@ -405,7 +415,7 @@ def _block_prefill(cfg, p: Block, x, positions, s_total: int, c_len: int, enc_ou
             h2, _ = moe_apply(cfg, p.moe, h2)
         else:
             h2 = mlp_apply(cfg, p.ffn, h2)
-        x = x + h2
+        x = shard(x + h2, "dp", "sp", None)
     return x, entry
 
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.collectives import all_to_all
-from ..distributed.ctx import Mesh, current_axes, current_mesh
+from ..distributed.ctx import Mesh, current_axes, current_mesh, shard
 from .layers import Init, Params, silu
 
 
@@ -181,7 +181,9 @@ def _moe_a2a(cfg, p: Params, x_flat: torch.Tensor, axes):
                   slot.clamp(0, cap - 1).reshape(groups, tp_size, t_loc * k)]
     w_flat = torch.where(keep, w_loc, torch.zeros_like(w_loc)).reshape(groups, tp_size, -1)
     out = (picked * w_flat[..., None].to(picked.dtype)).reshape(groups, tp_size, t_loc, k, d)
-    return out.sum(dim=3).reshape(n_tok, d), aux
+    # each shard returns its own token slice: the tokens split over the model axis
+    # (and the data axes), the JAX package's shard_map out_specs
+    return shard(out.sum(dim=3).reshape(n_tok, d), "tp", None), aux
 
 
 def moe_apply(cfg, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
