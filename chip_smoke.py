@@ -884,7 +884,7 @@ def run_submit(torch, session, query, lam, label: str) -> dict:
         "compile_us": res.compile_us, "verify_us": res.verify_us,
         "execute_us": res.execute_us, "round_us_sum": rounds_us,
         "host_us": res.execute_us - rounds_us, "round_us": r.round_us,
-        "phase_us": r.phase_us, "dispatches": r.dispatches,
+        "spans_us": res.spans_us, "counters": res.counters, "dispatches": r.dispatches,
         "launches": {k: after[k] - before[k] for k in after},
         "peak_device_bytes": peak, "base_device_bytes": base,
         "stages": len(session._plans[res.plan_key].stages),

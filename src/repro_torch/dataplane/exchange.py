@@ -31,6 +31,7 @@ import torch
 
 from ..kernels.ops import hash_partition_pack
 from ..kernels.ref import stable_rank, wrap_i32
+from ..spans import count
 
 INT32 = np.iinfo(np.int32)
 
@@ -59,11 +60,20 @@ def blockify(rows, p: int, cap: Optional[int] = None):
     return blocks, counts
 
 
+def to_host(x) -> np.ndarray:
+    """Tensor (any device) or array → numpy.  A tensor's bytes count as
+    ``d2h_bytes`` of the innermost span, whatever its device."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    a = x.cpu().numpy()
+    count("d2h_bytes", a.nbytes)
+    return a
+
+
 def unblockify(blocks, counts) -> np.ndarray:
     """Inverse of `blockify`: concatenate the valid prefixes of all machine
     blocks into one (n, w) int64 numpy array."""
-    b = blocks.cpu().numpy() if isinstance(blocks, torch.Tensor) else np.asarray(blocks)
-    c = counts.cpu().numpy() if isinstance(counts, torch.Tensor) else np.asarray(counts)
+    b, c = to_host(blocks), to_host(counts)
     parts = [b[i, : int(c[i])] for i in range(b.shape[0])]
     out = np.concatenate(parts, axis=0) if parts else np.zeros((0, b.shape[2]), b.dtype)
     return out.astype(np.int64)

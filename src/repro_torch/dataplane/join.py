@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels.ops import merge_join_counts, merge_join_pairs
+from ..spans import count
 from .exchange import batched_hash_exchange, scatter_rows, valid_mask
 
 BIG = 2**31 - 1
@@ -250,10 +251,14 @@ def infer_device(device, *xs) -> torch.device:
 
 
 def to_dev(x, device: torch.device) -> torch.Tensor:
-    """Host array or tensor → tensor on ``device`` (int dtypes kept)."""
+    """Host array or tensor → tensor on ``device`` (int dtypes kept).  A
+    host array's bytes count as ``h2d_bytes`` of the innermost span, whatever
+    the device."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    a = np.ascontiguousarray(x)
+    count("h2d_bytes", a.nbytes)
+    return torch.from_numpy(a).to(device)
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:

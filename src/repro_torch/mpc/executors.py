@@ -32,11 +32,12 @@ from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..core.query import Attr, JoinQuery, Relation, reference_join
 from ..core.taxonomy import heavy_masks, residual_relations
+from ..dataplane.exchange import to_host
 from ..device import resolve_device
+from ..spans import count, span
 from .faults import DeadlineExceededError, RetryExhaustedError
 from .hypercube import HyperCubeGrid, route_hypercube
 from .program import (
@@ -59,11 +60,6 @@ from .program import (
 )
 from .simulator import MPCSimulator, scatter_input
 from .verify import verify_program
-
-
-def to_host(x) -> np.ndarray:
-    """Tensor (any device) or array → numpy."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @dataclass
@@ -774,8 +770,7 @@ class DataplaneJoinResult:
 
     ``dispatches`` counts bucket calls (one per (op, bucket, attempt)) and
     ``bucket_stage_counts`` maps each op round to the per-dispatch batch
-    sizes.  ``jit_cache_hits``/``jit_cache_misses`` and the ``compile`` phase
-    read 0: nothing is traced or compiled ahead of a dispatch."""
+    sizes."""
 
     p: int
     count: int
@@ -785,22 +780,17 @@ class DataplaneJoinResult:
     # one entry per retry: ((H, η), op round name, "slot" | "out" | "slot+out")
     retry_log: List[Tuple[Tuple, str, str]] = field(default_factory=list)
     dispatches: int = 0
-    jit_cache_hits: int = 0
-    jit_cache_misses: int = 0
     #: learned-caps store outcomes for this run: a caps hit means a work item
     #: started at the capacities a previous run converged to.
     caps_hits: int = 0
     caps_misses: int = 0
     caps_evictions: int = 0
     bucket_stage_counts: Dict[str, List[int]] = field(default_factory=dict)
-    #: coarse per-phase wall time (µs) across the whole run: "host_prep"
-    #: (host stacking of a round's buckets), "compile" (always 0), "launch"
-    #: (host→device copies + enqueueing the bucket's kernels; asynchronous on
-    #: the card), "sync" (the deferred device→host readback per bucket —
-    #: where kernel time surfaces on the host clock).
-    phase_us: Dict[str, float] = field(default_factory=dict)
     #: per-round wall time (µs), keyed by op round name — count rounds appear
-    #: under "<round>/count".
+    #: under "<round>/count": the totals of the ``round.<round>`` spans (a
+    #: count pass's is ``round.<round>.count``), split by their ``dispatch``
+    #: (host stacking), ``launch`` (host→device copies, enqueued kernels) and
+    #: ``readback`` (the deferred device→host pull) spans.
     round_us: Dict[str, float] = field(default_factory=dict)
 
 
@@ -829,6 +819,16 @@ def _quant(n: int) -> int:
     if p2 >= 32 and 3 * (p2 // 4) >= n:
         return 3 * (p2 // 4)
     return p2
+
+
+def _pull_rows(rows, counts):
+    """Pull (rows (s, p, cap[, w]), counts (s, p)) to the host; the valid
+    rows' bytes count as ``d2h_row_bytes``, a part of the pull's
+    ``d2h_bytes`` (the rest is capacity padding and the counts)."""
+    rows, counts = to_host(rows), to_host(counts)
+    width = rows.shape[3] if rows.ndim == 4 else 1
+    count("d2h_row_bytes", int(counts.sum()) * width * rows.itemsize)
+    return rows, counts
 
 
 def _pack_radices(a_blocks, b_blocks, dup_pairs) -> Optional[np.ndarray]:
@@ -869,8 +869,6 @@ class BatchRunStats:
 
     queries: int = 1
     dispatches: int = 0
-    jit_cache_hits: int = 0
-    jit_cache_misses: int = 0
     retries: int = 0
     retry_log: List[Tuple[Tuple, str, str]] = field(default_factory=list)
     caps_hits: int = 0
@@ -878,7 +876,6 @@ class BatchRunStats:
     caps_evictions: int = 0
     caps_quarantined: int = 0
     bucket_stage_counts: Dict[str, List[int]] = field(default_factory=dict)
-    phase_us: Dict[str, float] = field(default_factory=dict)
     round_us: Dict[str, float] = field(default_factory=dict)
 
 
@@ -1037,7 +1034,6 @@ class DataplaneExecutor:
         self._tainted_caps: Optional[set] = None   # keys that saw injected overflow
         self._touched_caps: Optional[set] = None
         self._run_fps: Tuple[str, ...] = ()
-        self._phase_us: Dict[str, float] = {}
         self._round_us: Dict[str, float] = {}
 
     # -- capacity guesses (pow2-bucketed; all are starting points for retry) --
@@ -1107,7 +1103,6 @@ class DataplaneExecutor:
         self._caps_evictions = 0
         self._caps_quarantined = 0
         self._bucket_log: Dict[str, List[int]] = {}
-        self._phase_us = {"host_prep": 0.0, "compile": 0.0, "launch": 0.0, "sync": 0.0}
         self._round_us = {}
         self._deadline = config.deadline if config is not None else None
         self._fault_plan_run = (
@@ -1116,7 +1111,8 @@ class DataplaneExecutor:
         )
         self._touched_caps = set()
         self._tainted_caps = set()
-        self._run_fps = tuple(self._program_fingerprint(p) for p in programs)
+        with span("fingerprint"):
+            self._run_fps = tuple(self._program_fingerprint(p) for p in programs)
         states = [
             _StageState(stage=st, skey=(st.hkey, st.ekey), program=prog, qi=qi)
             for qi, prog in enumerate(programs)
@@ -1133,7 +1129,8 @@ class DataplaneExecutor:
                     ) from None
                 live = [state for state in states if not state.empty]
                 if live:
-                    lower(programs[0], live, op)
+                    with span("op." + type(op).__name__):
+                        lower(programs[0], live, op)
         except BaseException:
             self._quarantine_touched()
             raise
@@ -1154,43 +1151,42 @@ class DataplaneExecutor:
             caps_evictions=self._caps_evictions,
             caps_quarantined=self._caps_quarantined,
             bucket_stage_counts={k: list(v) for k, v in self._bucket_log.items()},
-            phase_us=dict(self._phase_us),
             round_us=dict(self._round_us),
         )
         results: List[DataplaneJoinResult] = []
-        for qi, program in enumerate(programs):
-            counts: Dict[Tuple[Attr, ...], int] = defaultdict(int)
-            chunks: List[np.ndarray] = [row for _, row in program.emit]
-            for hkey, c in program.emit_counts.items():
-                counts[hkey] += c
-            for state in states:
-                if state.qi != qi or state.skip_count:
-                    continue
-                counts[state.stage.hkey] += state.n_out
-                if state.rows is not None and state.rows.shape[0]:
-                    chunks.append(state.rows)
-            rows_out = None
-            if materialize:
-                rows_out = (
-                    np.concatenate(chunks, axis=0)
-                    if chunks
-                    else np.zeros((0, len(program.out_cols)), dtype=np.int64)
-                )
-            results.append(DataplaneJoinResult(
-                p=self.p,
-                count=sum(counts.values()),
-                rows=rows_out,
-                per_h_counts=dict(counts),
-                retries=self._qi_retries.get(qi, 0),
-                retry_log=list(self._qi_retry_log.get(qi, [])),
-                dispatches=batch.dispatches,
-                caps_hits=batch.caps_hits,
-                caps_misses=batch.caps_misses,
-                caps_evictions=batch.caps_evictions,
-                bucket_stage_counts={k: list(v) for k, v in batch.bucket_stage_counts.items()},
-                phase_us=dict(batch.phase_us),
-                round_us=dict(batch.round_us),
-            ))
+        with span("assemble"):
+            for qi, program in enumerate(programs):
+                counts: Dict[Tuple[Attr, ...], int] = defaultdict(int)
+                chunks: List[np.ndarray] = [row for _, row in program.emit]
+                for hkey, c in program.emit_counts.items():
+                    counts[hkey] += c
+                for state in states:
+                    if state.qi != qi or state.skip_count:
+                        continue
+                    counts[state.stage.hkey] += state.n_out
+                    if state.rows is not None and state.rows.shape[0]:
+                        chunks.append(state.rows)
+                rows_out = None
+                if materialize:
+                    rows_out = (
+                        np.concatenate(chunks, axis=0)
+                        if chunks
+                        else np.zeros((0, len(program.out_cols)), dtype=np.int64)
+                    )
+                results.append(DataplaneJoinResult(
+                    p=self.p,
+                    count=sum(counts.values()),
+                    rows=rows_out,
+                    per_h_counts=dict(counts),
+                    retries=self._qi_retries.get(qi, 0),
+                    retry_log=list(self._qi_retry_log.get(qi, [])),
+                    dispatches=batch.dispatches,
+                    caps_hits=batch.caps_hits,
+                    caps_misses=batch.caps_misses,
+                    caps_evictions=batch.caps_evictions,
+                    bucket_stage_counts={k: list(v) for k, v in batch.bucket_stage_counts.items()},
+                    round_us=dict(batch.round_us),
+                ))
         return results, batch
 
     # -- robustness hooks ------------------------------------------------------
@@ -1255,7 +1251,7 @@ class DataplaneExecutor:
         out, c, ovf = outs
 
         def finalize(out=out, c=c):
-            out, c = to_host(out[:s]), to_host(c[:s])
+            out, c = _pull_rows(out[:s], c[:s])
             return [(out[i], c[i]) for i in range(s)]
 
         return finalize, ovf[:s]
@@ -1291,14 +1287,19 @@ class DataplaneExecutor:
         every bucket, then reads each bucket back once — ``post(fn(*args))``
         gives ``(finalize, ovf (s, p, 2))``.  A *slot* trip re-buckets the
         whole retry group at ``attempt + 1`` (fresh salts); an *out*-only trip
-        re-buckets just the tripped items with their output channel grown."""
+        re-buckets just the tripped items with their output channel grown.
+        The round is the span ``round.<round name>`` (a ``/`` in the name
+        reads ``.``), its total the round's ``round_us``."""
         if not items:
             return items
         self._check_deadline(round_name)
-        fp = self._fault_plan_run
-        t_round = time.perf_counter()
-        phase = self._phase_us
+        with span("round." + round_name.replace("/", ".")) as sp:
+            self._schedule(round_name, items, dispatch)
+        self._round_us[round_name] = self._round_us.get(round_name, 0.0) + sp.us
+        return items
 
+    def _schedule(self, round_name: str, items: List[_WorkItem], dispatch) -> None:
+        fp = self._fault_plan_run
         # learned capacities: start each item at the caps its slot ended the
         # previous run with
         for it in items:
@@ -1338,63 +1339,60 @@ class DataplaneExecutor:
                     bkey = bkey + (id(it),)     # force singleton buckets
                 buckets.setdefault(bkey, []).append(it)
 
-            t0 = time.perf_counter()
-            prepared = []
-            for bucket in buckets.values():
-                # nothing is compiled ahead of a dispatch here, so the first
-                # build of a (round, key, caps) bucket stands where the
-                # reference's executable-cache miss compiles: the compile
-                # fault site fires there
-                sig = (round_name, bucket[0].key, tuple(sorted(bucket[0].caps.items())))
-                if sig in self._built:
-                    self._built.move_to_end(sig)
-                else:
-                    if fp is not None:
-                        fp.at_compile(round_name)
-                    self._built[sig] = None
-                    while len(self._built) > self._LEARNED_CAPS_CAPACITY:
-                        self._built.popitem(last=False)
-                prepared.append((bucket, *dispatch(bucket)))
-                self._dispatches += 1
-                self._bucket_log.setdefault(round_name, []).append(len(bucket))
-            phase["host_prep"] = phase.get("host_prep", 0.0) + (time.perf_counter() - t0) * 1e6
+            with span("dispatch"):
+                prepared = []
+                for bucket in buckets.values():
+                    # nothing is compiled ahead of a dispatch here, so the first
+                    # build of a (round, key, caps) bucket stands where the
+                    # reference's executable-cache miss compiles: the compile
+                    # fault site fires there
+                    sig = (round_name, bucket[0].key, tuple(sorted(bucket[0].caps.items())))
+                    if sig in self._built:
+                        self._built.move_to_end(sig)
+                    else:
+                        if fp is not None:
+                            fp.at_compile(round_name)
+                        self._built[sig] = None
+                        while len(self._built) > self._LEARNED_CAPS_CAPACITY:
+                            self._built.popitem(last=False)
+                    prepared.append((bucket, *dispatch(bucket)))
+                    self._dispatches += 1
+                    self._bucket_log.setdefault(round_name, []).append(len(bucket))
 
-            t0 = time.perf_counter()
-            launched = []
-            for bucket, fn, args, post in prepared:
-                self._check_deadline(round_name)
-                if fp is not None:
-                    fp.at_dispatch(round_name)
-                launched.append((bucket, *post(fn(*args))))
-            phase["launch"] = phase.get("launch", 0.0) + (time.perf_counter() - t0) * 1e6
+            with span("launch"):
+                launched = []
+                for bucket, fn, args, post in prepared:
+                    self._check_deadline(round_name)
+                    if fp is not None:
+                        fp.at_dispatch(round_name)
+                    launched.append((bucket, *post(fn(*args))))
 
             # one deferred readback per (op, bucket), after every bucket of
             # the round is enqueued
-            t0 = time.perf_counter()
-            tripped: Dict[int, set] = {}
-            for bucket, finalize, ovf in launched:
-                ovf_np = to_host(ovf)
-                results = finalize()
-                for i, it in enumerate(bucket):
-                    tot = ovf_np[i].reshape(-1, 2).sum(axis=0)
-                    kinds = set()
-                    if int(tot[0]):
-                        kinds.add("slot")
-                    if int(tot[1]):
-                        kinds.add("out")
-                    if fp is not None:
-                        # injected overflow: forced channels read exactly like
-                        # real trips (doubling, re-salting, retry accounting),
-                        # but the item's learned-caps slot is tainted so the
-                        # inflated caps are never written back
-                        forced = {ch for ch in fp.overflow(round_name) if ch in it.caps}
-                        if forced:
-                            kinds |= forced
-                            if self._tainted_caps is not None:
-                                self._tainted_caps.add(self._caps_key(round_name, it))
-                    tripped[id(it)] = kinds
-                    it.result = results[i]
-            phase["sync"] = phase.get("sync", 0.0) + (time.perf_counter() - t0) * 1e6
+            with span("readback"):
+                tripped: Dict[int, set] = {}
+                for bucket, finalize, ovf in launched:
+                    ovf_np = to_host(ovf)
+                    results = finalize()
+                    for i, it in enumerate(bucket):
+                        tot = ovf_np[i].reshape(-1, 2).sum(axis=0)
+                        kinds = set()
+                        if int(tot[0]):
+                            kinds.add("slot")
+                        if int(tot[1]):
+                            kinds.add("out")
+                        if fp is not None:
+                            # injected overflow: forced channels read exactly like
+                            # real trips (doubling, re-salting, retry accounting),
+                            # but the item's learned-caps slot is tainted so the
+                            # inflated caps are never written back
+                            forced = {ch for ch in fp.overflow(round_name) if ch in it.caps}
+                            if forced:
+                                kinds |= forced
+                                if self._tainted_caps is not None:
+                                    self._tainted_caps.add(self._caps_key(round_name, it))
+                        tripped[id(it)] = kinds
+                        it.result = results[i]
 
             group_kinds: Dict[Tuple, set] = {}
             for it in pending:
@@ -1459,10 +1457,6 @@ class DataplaneExecutor:
             self._learned_caps.popitem(last=False)
             self._caps_evictions += 1
             self.caps_evictions += 1
-        self._round_us[round_name] = self._round_us.get(round_name, 0.0) + (
-            time.perf_counter() - t_round
-        ) * 1e6
-        return items
 
     def _apply_exact_caps(self, round_name, items, count_dispatch, caps_from_count, floor):
         """Count-then-emit capacity sizing (``exact_caps=True``): items with
@@ -1504,88 +1498,91 @@ class DataplaneExecutor:
         from ..dataplane.exchange import blockify
 
         query, stats = program.query, program.stats
-        masks = heavy_masks(query, stats)   # once per run, not once per stage
-        staged_states = []
-        for state in states:
-            plan = state.stage.plan
-            residuals = residual_relations(query, stats, plan, state.stage.cfg.eta, masks=masks)
-            if residuals is None:
-                raise RuntimeError(
-                    f"stage {state.skey} compiled for an infeasible η — compiler bug"
-                )
-            # host view of R''_X = ∩ unary pieces decides the stage's fate the
-            # way the simulator's geometry does
-            host_piece: Dict[Attr, np.ndarray] = {}
-            for x in plan.border:
-                vals = None
-                for e in plan.cross_edges:
-                    if x not in e:
-                        continue
-                    pv = np.unique(residuals[(e, (x,))].data[:, 0])
-                    vals = pv if vals is None else np.intersect1d(vals, pv, assume_unique=True)
-                host_piece[x] = vals
-            if any(host_piece[x].size == 0 for x in plan.isolated):
-                state.empty, state.skip_count = True, True
-                continue
-            if any(v.size == 0 for v in host_piece.values()):
-                state.empty = True
-                continue
-            if any(len(residuals[(e, query.relation_for(e).scheme)]) == 0
-                   for e in plan.light_edges):
-                state.empty = True
-                continue
-            state.host_piece_n = {x: int(v.size) for x, v in host_piece.items()}
-            staged_states.append((state, residuals))
+        with span("carve"):
+            masks = heavy_masks(query, stats)   # once per run, not once per stage
+            staged_states = []
+            for state in states:
+                plan = state.stage.plan
+                residuals = residual_relations(query, stats, plan, state.stage.cfg.eta, masks=masks)
+                if residuals is None:
+                    raise RuntimeError(
+                        f"stage {state.skey} compiled for an infeasible η — compiler bug"
+                    )
+                # host view of R''_X = ∩ unary pieces decides the stage's fate the
+                # way the simulator's geometry does
+                host_piece: Dict[Attr, np.ndarray] = {}
+                for x in plan.border:
+                    vals = None
+                    for e in plan.cross_edges:
+                        if x not in e:
+                            continue
+                        pv = np.unique(residuals[(e, (x,))].data[:, 0])
+                        vals = pv if vals is None else np.intersect1d(vals, pv, assume_unique=True)
+                    host_piece[x] = vals
+                if any(host_piece[x].size == 0 for x in plan.isolated):
+                    state.empty, state.skip_count = True, True
+                    continue
+                if any(v.size == 0 for v in host_piece.values()):
+                    state.empty = True
+                    continue
+                if any(len(residuals[(e, query.relation_for(e).scheme)]) == 0
+                       for e in plan.light_edges):
+                    state.empty = True
+                    continue
+                state.host_piece_n = {x: int(v.size) for x, v in host_piece.items()}
+                staged_states.append((state, residuals))
 
-        # program-wide unary block capacity and piece count: every stage's
-        # staged R''_X inputs share one shape, so the HashPartition
-        # intersects coalesce into one bucket
-        unary_cap, n_pieces = 1, 1
-        for state, residuals in staged_states:
-            plan = state.stage.plan
-            for x in plan.border:
-                es = [e for e in plan.cross_edges if x in e]
-                n_pieces = max(n_pieces, len(es))
-                for e in es:
-                    unary_cap = max(unary_cap, self._block_cap(len(residuals[(e, (x,))])))
+        with span("stage"):
+            # program-wide unary block capacity and piece count: every stage's
+            # staged R''_X inputs share one shape, so the HashPartition
+            # intersects coalesce into one bucket
+            unary_cap, n_pieces = 1, 1
+            for state, residuals in staged_states:
+                plan = state.stage.plan
+                for x in plan.border:
+                    es = [e for e in plan.cross_edges if x in e]
+                    n_pieces = max(n_pieces, len(es))
+                    for e in es:
+                        unary_cap = max(unary_cap, self._block_cap(len(residuals[(e, (x,))])))
 
-        for state, residuals in staged_states:
-            plan = state.stage.plan
-            state.light = []
-            for e in plan.light_edges:
-                rel = residuals[(e, query.relation_for(e).scheme)]
-                blocks, cnts = blockify(rel.data, self.p, self._block_cap(len(rel)))
-                state.light.append((list(query.relation_for(e).scheme), blocks, cnts, len(rel)))
-            state.unary = {}
-            for x in plan.border:
-                staged = []
-                for e in plan.cross_edges:
-                    if x not in e:
-                        continue
-                    r = residuals[(e, (x,))]
-                    bv, bc = blockify(r.data[:, 0], self.p, unary_cap)
-                    staged.append((bv[:, :, 0], bc, len(r)))
-                # padding with a repeat of the last piece is an intersection
-                # no-op (A ∩ A = unique(A)) that gives every stage one shape
-                while len(staged) < n_pieces:
-                    staged.append(staged[-1])
-                state.unary[x] = staged
+            for state, residuals in staged_states:
+                plan = state.stage.plan
+                state.light = []
+                for e in plan.light_edges:
+                    rel = residuals[(e, query.relation_for(e).scheme)]
+                    blocks, cnts = blockify(rel.data, self.p, self._block_cap(len(rel)))
+                    state.light.append((list(query.relation_for(e).scheme), blocks, cnts, len(rel)))
+                state.unary = {}
+                for x in plan.border:
+                    staged = []
+                    for e in plan.cross_edges:
+                        if x not in e:
+                            continue
+                        r = residuals[(e, (x,))]
+                        bv, bc = blockify(r.data[:, 0], self.p, unary_cap)
+                        staged.append((bv[:, :, 0], bc, len(r)))
+                    # padding with a repeat of the last piece is an intersection
+                    # no-op (A ∩ A = unique(A)) that gives every stage one shape
+                    while len(staged) < n_pieces:
+                        staged.append(staged[-1])
+                    state.unary[x] = staged
 
     def _lower_hash_partition(self, program, states, op) -> None:
         from ..dataplane.exchange import salt_offset
         from ..dataplane.join import batched_sharded_intersect
 
-        items: List[_WorkItem] = []
-        for state in states:
-            for x, staged in state.unary.items():
-                n_max = max(n for _, _, n in staged)
-                items.append(_WorkItem(
-                    state=state,
-                    key=("intersect", tuple(bv.shape for bv, _, _ in staged)),
-                    caps={"slot": self._slot_cap(n_max), "out": self._cap(n_max)},
-                    payload={"x": x, "staged": staged},
-                    group=("intersect", state.skey, x),
-                ))
+        with span("stage"):
+            items: List[_WorkItem] = []
+            for state in states:
+                for x, staged in state.unary.items():
+                    n_max = max(n for _, _, n in staged)
+                    items.append(_WorkItem(
+                        state=state,
+                        key=("intersect", tuple(bv.shape for bv, _, _ in staged)),
+                        caps={"slot": self._slot_cap(n_max), "out": self._cap(n_max)},
+                        payload={"x": x, "staged": staged},
+                        group=("intersect", state.skey, x),
+                    ))
 
         def dispatch(bucket):
             s, s_pad = len(bucket), self._pow2_stages(len(bucket))
@@ -1609,7 +1606,7 @@ class DataplaneExecutor:
                 vals, cnts, ovf = outs
 
                 def finalize(vals=vals, cnts=cnts):
-                    vals, cnts = to_host(vals[:s]), to_host(cnts[:s])
+                    vals, cnts = _pull_rows(vals[:s], cnts[:s])
                     return [(vals[i], cnts[i], salts[i]) for i in range(s)]
 
                 return finalize, ovf[:s]
@@ -1642,21 +1639,22 @@ class DataplaneExecutor:
         else:
             raise DataplaneUnsupported(f"SemiJoin phase {op.phase!r}")
 
-        items: List[_WorkItem] = []
-        for state in states:
-            for idx, (scheme, blocks, cnts, n) in enumerate(state.light):
-                attr = scheme[col]
-                if attr not in state.pieces:
-                    continue
-                pv, pc = state.pieces[attr]
-                items.append(_WorkItem(
-                    state=state,
-                    key=("semijoin", col, tuple(blocks.shape), tuple(pv.shape)),
-                    caps={"slot": self._slot_cap(n), "out": self._cap(n)},
-                    payload={"idx": idx, "attr": attr, "blocks": blocks,
-                             "cnts": cnts, "pv": pv, "pc": pc},
-                    group=("semijoin", state.skey, idx),
-                ))
+        with span("stage"):
+            items: List[_WorkItem] = []
+            for state in states:
+                for idx, (scheme, blocks, cnts, n) in enumerate(state.light):
+                    attr = scheme[col]
+                    if attr not in state.pieces:
+                        continue
+                    pv, pc = state.pieces[attr]
+                    items.append(_WorkItem(
+                        state=state,
+                        key=("semijoin", col, tuple(blocks.shape), tuple(pv.shape)),
+                        caps={"slot": self._slot_cap(n), "out": self._cap(n)},
+                        payload={"idx": idx, "attr": attr, "blocks": blocks,
+                                 "cnts": cnts, "pv": pv, "pc": pc},
+                        group=("semijoin", state.skey, idx),
+                    ))
 
         def dispatch(bucket):
             s, s_pad = len(bucket), self._pow2_stages(len(bucket))
@@ -1691,14 +1689,15 @@ class DataplaneExecutor:
         """The O(p²) size round: the per-machine piece counts crossed to the
         host with the HashPartition readback; `stage_geometry` turns them
         into the stage's CP grid × HyperCube shape and the global-id offsets."""
-        for state in states:
-            entries: Dict[Attr, List[Tuple[int, int]]] = {
-                x: list(enumerate(int(c) for c in state.pieces[x][1].tolist()))
-                for x in state.stage.plan.isolated
-            }
-            state.geo = stage_geometry(state.program, state.stage, entries)
-            if state.geo.skip:
-                state.empty, state.skip_count = True, True
+        with span("stage"):
+            for state in states:
+                entries: Dict[Attr, List[Tuple[int, int]]] = {
+                    x: list(enumerate(int(c) for c in state.pieces[x][1].tolist()))
+                    for x in state.stage.plan.isolated
+                }
+                state.geo = stage_geometry(state.program, state.stage, entries)
+                if state.geo.skip:
+                    state.empty, state.skip_count = True, True
 
     def _lower_grid_route(self, program, states, op) -> None:
         from ..dataplane.grid import (
@@ -1711,68 +1710,69 @@ class DataplaneExecutor:
             hc_batch_params,
         )
 
-        # pass 1: per-fragment route parameters; pass 2 pads each group's
-        # fanout to the group max pow2 (sentinel copies are ghosted)
-        raw = []
-        for state in states:
-            geo = state.geo
-            if geo is None:
-                raise DataplaneUnsupported("GridRoute before BroadcastSizes")
-            if geo.cp_size * geo.hc_size >= 1 << 31:
-                raise RuntimeError(f"stage {state.skey}: virtual grid exceeds int32")
-            n_parts = (len(state.light) if state.light else 0) + len(geo.iso_order)
-            state.routed = [None] * n_parts
-            pos = 0
-            # HC side first (join order: light join, then CP cartesian
-            # factors); all light fragments of a stage share one retry group
-            for scheme, blocks, cnts, n in state.light or []:
-                cols, shares, strides, table = hc_batch_params(geo.hc_grid, scheme, geo.cp_size)
-                raw.append((state, "hc", pos, {
-                    "scheme": scheme, "blocks": blocks, "cnts": cnts, "cols": cols,
-                    "shares": shares, "strides": strides, "table": table, "n": n,
-                }))
-                pos += 1
-            # CP side: id-deterministic routing (no salts), per-piece retry
-            for li, x in enumerate(geo.iso_order):
-                vals, cnts = state.pieces[x]
-                dim, scale, table = cp_batch_params(geo.grid, li, geo.hc_size)
-                offsets = np.asarray([geo.offsets[(x, dev)] for dev in range(self.p)],
-                                     dtype=np.int64)
-                raw.append((state, "cp", pos, {
-                    "x": x, "vals": vals, "cnts": cnts, "offsets": offsets,
-                    "dim": dim, "scale": scale, "table": table, "n": state.piece_n[x],
-                }))
-                pos += 1
+        with span("stage"):
+            # pass 1: per-fragment route parameters; pass 2 pads each group's
+            # fanout to the group max pow2 (sentinel copies are ghosted)
+            raw = []
+            for state in states:
+                geo = state.geo
+                if geo is None:
+                    raise DataplaneUnsupported("GridRoute before BroadcastSizes")
+                if geo.cp_size * geo.hc_size >= 1 << 31:
+                    raise RuntimeError(f"stage {state.skey}: virtual grid exceeds int32")
+                n_parts = (len(state.light) if state.light else 0) + len(geo.iso_order)
+                state.routed = [None] * n_parts
+                pos = 0
+                # HC side first (join order: light join, then CP cartesian
+                # factors); all light fragments of a stage share one retry group
+                for scheme, blocks, cnts, n in state.light or []:
+                    cols, shares, strides, table = hc_batch_params(geo.hc_grid, scheme, geo.cp_size)
+                    raw.append((state, "hc", pos, {
+                        "scheme": scheme, "blocks": blocks, "cnts": cnts, "cols": cols,
+                        "shares": shares, "strides": strides, "table": table, "n": n,
+                    }))
+                    pos += 1
+                # CP side: id-deterministic routing (no salts), per-piece retry
+                for li, x in enumerate(geo.iso_order):
+                    vals, cnts = state.pieces[x]
+                    dim, scale, table = cp_batch_params(geo.grid, li, geo.hc_size)
+                    offsets = np.asarray([geo.offsets[(x, dev)] for dev in range(self.p)],
+                                         dtype=np.int64)
+                    raw.append((state, "cp", pos, {
+                        "x": x, "vals": vals, "cnts": cnts, "offsets": offsets,
+                        "dim": dim, "scale": scale, "table": table, "n": state.piece_n[x],
+                    }))
+                    pos += 1
 
-        group_fanout: Dict[Tuple, int] = {}
-        for state, kind, pos, pl in raw:
-            gk = (state.qi, kind, pl.get("cols"))
-            group_fanout[gk] = max(group_fanout.get(gk, 1), len(pl["table"]))
+            group_fanout: Dict[Tuple, int] = {}
+            for state, kind, pos, pl in raw:
+                gk = (state.qi, kind, pl.get("cols"))
+                group_fanout[gk] = max(group_fanout.get(gk, 1), len(pl["table"]))
 
-        items: List[_WorkItem] = []
-        for state, kind, pos, pl in raw:
-            f_max = _pow2(group_fanout[(state.qi, kind, pl.get("cols"))])
-            own = _pow2(len(pl["table"]))
-            fanout = f_max if own * self.fanout_merge_ratio >= f_max else own
-            n = pl["n"]
-            # replicating routes are lumpier than hash exchanges: start the
-            # slot channel at double slack
-            caps = {
-                "slot": 2 * self._slot_cap(n * len(pl["table"])),
-                "out": self._cap(n * len(pl["table"])),
-            }
-            if kind == "hc":
-                sig = HCBatchSig(cols=pl["cols"], fanout=fanout)
-                key = ("hc", sig, tuple(pl["blocks"].shape))
-                group = ("hc", state.skey)
-            else:
-                sig = CPBatchSig(fanout=fanout)
-                key = ("cp", sig, tuple(pl["vals"].shape))
-                group = ("cp", state.skey, pl["x"])
-            items.append(_WorkItem(
-                state=state, key=key, caps=caps, payload={"pos": pos, "sig": sig, **pl},
-                group=group,
-            ))
+            items: List[_WorkItem] = []
+            for state, kind, pos, pl in raw:
+                f_max = _pow2(group_fanout[(state.qi, kind, pl.get("cols"))])
+                own = _pow2(len(pl["table"]))
+                fanout = f_max if own * self.fanout_merge_ratio >= f_max else own
+                n = pl["n"]
+                # replicating routes are lumpier than hash exchanges: start the
+                # slot channel at double slack
+                caps = {
+                    "slot": 2 * self._slot_cap(n * len(pl["table"])),
+                    "out": self._cap(n * len(pl["table"])),
+                }
+                if kind == "hc":
+                    sig = HCBatchSig(cols=pl["cols"], fanout=fanout)
+                    key = ("hc", sig, tuple(pl["blocks"].shape))
+                    group = ("hc", state.skey)
+                else:
+                    sig = CPBatchSig(fanout=fanout)
+                    key = ("cp", sig, tuple(pl["vals"].shape))
+                    group = ("cp", state.skey, pl["x"])
+                items.append(_WorkItem(
+                    state=state, key=key, caps=caps, payload={"pos": pos, "sig": sig, **pl},
+                    group=group,
+                ))
 
         def make_dispatch(count: bool):
             def dispatch(bucket):
@@ -1895,35 +1895,36 @@ class DataplaneExecutor:
             active = [state for state in states if len(state.parts) >= 2]
             if not active:
                 break
-            items: List[_WorkItem] = []
-            for state in active:
-                a_scheme = state.parts[0][0]
-                n_parts = len(state.parts)
-                j_best = max(
-                    range(1, n_parts),
-                    key=lambda j: len(
-                        [a for a in a_scheme[1:] if a in state.parts[j][0]]
-                    ) * n_parts - j,
-                )
-                if j_best != 1:
-                    state.parts[1], state.parts[j_best] = state.parts[j_best], state.parts[1]
-                a_scheme, a_blocks, a_cnts, n_a = state.parts[0]
-                b_scheme, b_blocks, b_cnts, n_b = state.parts[1]
-                common = [a for a in a_scheme[1:] if a in b_scheme]
-                dup_pairs = tuple((a_scheme.index(a), b_scheme.index(a)) for a in common)
-                out_scheme = a_scheme + [
-                    a for i, a in enumerate(b_scheme) if i != 0 and a not in common
-                ]
-                mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
-                items.append(_WorkItem(
-                    state=state,
-                    key=("join", tuple(a_blocks.shape), tuple(b_blocks.shape),
-                         dup_pairs, mults is not None),
-                    caps={"out": self._cap(4 * (n_a + n_b))},
-                    payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts),
-                             "dup_pairs": dup_pairs, "scheme": out_scheme, "mults": mults},
-                    group=("join", state.skey),
-                ))
+            with span("stage"):
+                items: List[_WorkItem] = []
+                for state in active:
+                    a_scheme = state.parts[0][0]
+                    n_parts = len(state.parts)
+                    j_best = max(
+                        range(1, n_parts),
+                        key=lambda j: len(
+                            [a for a in a_scheme[1:] if a in state.parts[j][0]]
+                        ) * n_parts - j,
+                    )
+                    if j_best != 1:
+                        state.parts[1], state.parts[j_best] = state.parts[j_best], state.parts[1]
+                    a_scheme, a_blocks, a_cnts, n_a = state.parts[0]
+                    b_scheme, b_blocks, b_cnts, n_b = state.parts[1]
+                    common = [a for a in a_scheme[1:] if a in b_scheme]
+                    dup_pairs = tuple((a_scheme.index(a), b_scheme.index(a)) for a in common)
+                    out_scheme = a_scheme + [
+                        a for i, a in enumerate(b_scheme) if i != 0 and a not in common
+                    ]
+                    mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
+                    items.append(_WorkItem(
+                        state=state,
+                        key=("join", tuple(a_blocks.shape), tuple(b_blocks.shape),
+                             dup_pairs, mults is not None),
+                        caps={"out": self._cap(4 * (n_a + n_b))},
+                        payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts),
+                                 "dup_pairs": dup_pairs, "scheme": out_scheme, "mults": mults},
+                        group=("join", state.skey),
+                    ))
 
             if self.exact_caps:
                 self._apply_exact_caps(
@@ -1937,21 +1938,22 @@ class DataplaneExecutor:
                 n = int(cnts.sum())
                 it.state.parts[0:2] = [(it.payload["scheme"], blocks, cnts, n)]
 
-        for state in states:
-            scheme, blocks, cnts, n = state.parts[0]
-            state.n_out = n
-            if not self._materialize or n == 0:
-                continue
-            rows = unblockify(blocks, cnts)[:, 1:]     # drop the cell column
-            out_scheme = scheme[1:]
-            for a in state.stage.plan.h_set:
-                rows = np.concatenate(
-                    [rows, np.full((rows.shape[0], 1), state.stage.cfg.eta.value(a), np.int64)],
-                    axis=1,
-                )
-                out_scheme = out_scheme + [a]
-            perm = [out_scheme.index(a) for a in state.program.out_cols]
-            state.rows = rows[:, perm]
+        with span("assemble"):
+            for state in states:
+                scheme, blocks, cnts, n = state.parts[0]
+                state.n_out = n
+                if not self._materialize or n == 0:
+                    continue
+                rows = unblockify(blocks, cnts)[:, 1:]     # drop the cell column
+                out_scheme = scheme[1:]
+                for a in state.stage.plan.h_set:
+                    rows = np.concatenate(
+                        [rows, np.full((rows.shape[0], 1), state.stage.cfg.eta.value(a), np.int64)],
+                        axis=1,
+                    )
+                    out_scheme = out_scheme + [a]
+                perm = [out_scheme.index(a) for a in state.program.out_cols]
+                state.rows = rows[:, perm]
 
     # -- general-route lowering rules (arbitrary-arity programs) --------------
 
@@ -2028,45 +2030,47 @@ class DataplaneExecutor:
             batched_sharded_semijoin,
         )
 
-        self._ensure_general_staged(states)
-        n_edges = max(
-            (len(state.program.general.tree_edges)
-             for state in states if not state.empty),
-            default=0,
-        )
+        with span("stage"):
+            self._ensure_general_staged(states)
+            n_edges = max(
+                (len(state.program.general.tree_edges)
+                 for state in states if not state.empty),
+                default=0,
+            )
         for ei in range(n_edges):
-            prep: List[_WorkItem] = []
-            for state in states:
-                if state.empty:
-                    continue
-                edges = state.program.general.tree_edges
-                if ei >= len(edges):
-                    continue
-                child, par, shared = (
-                    edges[ei] if op.phase == "up" else edges[len(edges) - 1 - ei]
-                )
-                tgt, src = (par, child) if op.phase == "up" else (child, par)
-                tgt_scheme, tgt_blocks, tgt_cnts, n_tgt = state.gparts[tgt]
-                src_scheme, src_blocks, src_cnts, _ = state.gparts[src]
-                tgt_rows = unblockify(tgt_blocks, tgt_cnts)
-                src_rows = unblockify(src_blocks, src_cnts)
-                tk, sk = self._general_key_cols(
-                    tgt_scheme, tgt_rows, src_scheme, src_rows, shared
-                )
-                piece = np.unique(sk)
-                pv, pc = blockify(piece, self.p, self._block_cap(piece.size))
-                keyed = np.concatenate([tgt_rows, tk[:, None]], axis=1)
-                kb, kc = blockify(keyed, self.p, self._block_cap(len(keyed)))
-                prep.append(_WorkItem(
-                    state=state,
-                    key=("gsj-intersect", tuple(pv[:, :, 0].shape)),
-                    caps={"slot": self._slot_cap(piece.size),
-                          "out": self._cap(piece.size)},
-                    payload={"pv": pv[:, :, 0], "pc": pc, "rows": kb,
-                             "cnts": kc, "n": n_tgt, "tgt": tgt,
-                             "col": len(tgt_scheme)},
-                    group=("gsj-intersect", state.qi, ei),
-                ))
+            with span("stage"):
+                prep: List[_WorkItem] = []
+                for state in states:
+                    if state.empty:
+                        continue
+                    edges = state.program.general.tree_edges
+                    if ei >= len(edges):
+                        continue
+                    child, par, shared = (
+                        edges[ei] if op.phase == "up" else edges[len(edges) - 1 - ei]
+                    )
+                    tgt, src = (par, child) if op.phase == "up" else (child, par)
+                    tgt_scheme, tgt_blocks, tgt_cnts, n_tgt = state.gparts[tgt]
+                    src_scheme, src_blocks, src_cnts, _ = state.gparts[src]
+                    tgt_rows = unblockify(tgt_blocks, tgt_cnts)
+                    src_rows = unblockify(src_blocks, src_cnts)
+                    tk, sk = self._general_key_cols(
+                        tgt_scheme, tgt_rows, src_scheme, src_rows, shared
+                    )
+                    piece = np.unique(sk)
+                    pv, pc = blockify(piece, self.p, self._block_cap(piece.size))
+                    keyed = np.concatenate([tgt_rows, tk[:, None]], axis=1)
+                    kb, kc = blockify(keyed, self.p, self._block_cap(len(keyed)))
+                    prep.append(_WorkItem(
+                        state=state,
+                        key=("gsj-intersect", tuple(pv[:, :, 0].shape)),
+                        caps={"slot": self._slot_cap(piece.size),
+                              "out": self._cap(piece.size)},
+                        payload={"pv": pv[:, :, 0], "pc": pc, "rows": kb,
+                                 "cnts": kc, "n": n_tgt, "tgt": tgt,
+                                 "col": len(tgt_scheme)},
+                        group=("gsj-intersect", state.qi, ei),
+                    ))
 
             if not prep:
                 continue
@@ -2094,27 +2098,29 @@ class DataplaneExecutor:
                     vals, cnts, ovf = outs
 
                     def finalize(vals=vals, cnts=cnts):
-                        vals, cnts = to_host(vals[:s]), to_host(cnts[:s])
+                        vals, cnts = _pull_rows(vals[:s], cnts[:s])
                         return [(vals[i], cnts[i], salts[i]) for i in range(s)]
 
                     return finalize, ovf[:s]
 
                 return fn, args, post
 
-            sj_items: List[_WorkItem] = []
-            for it in self._run_buckets(op.round, prep, i_dispatch):
-                vals, cnts, salt = it.result
-                pl = dict(it.payload)
-                pl["piece"], pl["salt"] = (vals, cnts), salt
-                sj_items.append(_WorkItem(
-                    state=it.state,
-                    key=("gsj-filter", pl["col"], tuple(pl["rows"].shape),
-                         tuple(vals.shape)),
-                    caps={"slot": self._slot_cap(pl["n"]),
-                          "out": self._cap(pl["n"])},
-                    payload=pl,
-                    group=("gsj-filter", it.state.qi, ei),
-                ))
+            pieces = self._run_buckets(op.round, prep, i_dispatch)
+            with span("stage"):
+                sj_items: List[_WorkItem] = []
+                for it in pieces:
+                    vals, cnts, salt = it.result
+                    pl = dict(it.payload)
+                    pl["piece"], pl["salt"] = (vals, cnts), salt
+                    sj_items.append(_WorkItem(
+                        state=it.state,
+                        key=("gsj-filter", pl["col"], tuple(pl["rows"].shape),
+                             tuple(vals.shape)),
+                        caps={"slot": self._slot_cap(pl["n"]),
+                              "out": self._cap(pl["n"])},
+                        payload=pl,
+                        group=("gsj-filter", it.state.qi, ei),
+                    ))
 
             def f_dispatch(bucket):
                 s, s_pad = len(bucket), self._pow2_stages(len(bucket))
@@ -2165,50 +2171,51 @@ class DataplaneExecutor:
             hc_batch_params,
         )
 
-        self._ensure_general_staged(states)
-        raw = []
-        for state in states:
-            if state.empty:
-                continue
-            gen = state.program.general
-            grid = HyperCubeGrid(
-                list(state.program.out_cols), gen.shares_dict
-            )
-            if grid.size >= 1 << 31:
-                raise RuntimeError(f"stage {state.skey}: share grid exceeds int32")
-            state.routed = [None] * len(state.gparts)
-            for pos, ri in enumerate(gen.join_order):
-                scheme, blocks, cnts, n = state.gparts[ri]
-                cols, shares, strides, table = hc_batch_params(grid, scheme, 1)
-                raw.append((state, pos, {
-                    "scheme": scheme, "blocks": blocks, "cnts": cnts,
-                    "cols": cols, "shares": shares, "strides": strides,
-                    "table": table, "n": n,
-                }))
+        with span("stage"):
+            self._ensure_general_staged(states)
+            raw = []
+            for state in states:
+                if state.empty:
+                    continue
+                gen = state.program.general
+                grid = HyperCubeGrid(
+                    list(state.program.out_cols), gen.shares_dict
+                )
+                if grid.size >= 1 << 31:
+                    raise RuntimeError(f"stage {state.skey}: share grid exceeds int32")
+                state.routed = [None] * len(state.gparts)
+                for pos, ri in enumerate(gen.join_order):
+                    scheme, blocks, cnts, n = state.gparts[ri]
+                    cols, shares, strides, table = hc_batch_params(grid, scheme, 1)
+                    raw.append((state, pos, {
+                        "scheme": scheme, "blocks": blocks, "cnts": cnts,
+                        "cols": cols, "shares": shares, "strides": strides,
+                        "table": table, "n": n,
+                    }))
 
-        group_fanout: Dict[Tuple, int] = {}
-        for state, pos, pl in raw:
-            gk = (state.qi, pl["cols"])
-            group_fanout[gk] = max(group_fanout.get(gk, 1), len(pl["table"]))
+            group_fanout: Dict[Tuple, int] = {}
+            for state, pos, pl in raw:
+                gk = (state.qi, pl["cols"])
+                group_fanout[gk] = max(group_fanout.get(gk, 1), len(pl["table"]))
 
-        items: List[_WorkItem] = []
-        for state, pos, pl in raw:
-            f_max = _pow2(group_fanout[(state.qi, pl["cols"])])
-            own = _pow2(len(pl["table"]))
-            fanout = f_max if own * self.fanout_merge_ratio >= f_max else own
-            n = pl["n"]
-            caps = {
-                "slot": 2 * self._slot_cap(n * len(pl["table"])),
-                "out": self._cap(n * len(pl["table"])),
-            }
-            sig = HCBatchSig(cols=pl["cols"], fanout=fanout)
-            items.append(_WorkItem(
-                state=state,
-                key=("ghc", sig, tuple(pl["blocks"].shape)),
-                caps=caps,
-                payload={"pos": pos, "sig": sig, **pl},
-                group=("ghc", state.qi),
-            ))
+            items: List[_WorkItem] = []
+            for state, pos, pl in raw:
+                f_max = _pow2(group_fanout[(state.qi, pl["cols"])])
+                own = _pow2(len(pl["table"]))
+                fanout = f_max if own * self.fanout_merge_ratio >= f_max else own
+                n = pl["n"]
+                caps = {
+                    "slot": 2 * self._slot_cap(n * len(pl["table"])),
+                    "out": self._cap(n * len(pl["table"])),
+                }
+                sig = HCBatchSig(cols=pl["cols"], fanout=fanout)
+                items.append(_WorkItem(
+                    state=state,
+                    key=("ghc", sig, tuple(pl["blocks"].shape)),
+                    caps=caps,
+                    payload={"pos": pos, "sig": sig, **pl},
+                    group=("ghc", state.qi),
+                ))
 
         def make_dispatch(count: bool):
             def dispatch(bucket):
@@ -2284,28 +2291,29 @@ class DataplaneExecutor:
             active = [state for state in states if len(state.parts) >= 2]
             if not active:
                 break
-            items: List[_WorkItem] = []
-            for state in active:
-                a_scheme, a_blocks, a_cnts, n_a = state.parts[0]
-                b_scheme, b_blocks, b_cnts, n_b = state.parts[1]
-                common = [a for a in a_scheme[1:] if a in b_scheme]
-                dup_pairs = tuple(
-                    (a_scheme.index(a), b_scheme.index(a)) for a in common
-                )
-                out_scheme = a_scheme + [
-                    a for i, a in enumerate(b_scheme) if i != 0 and a not in common
-                ]
-                mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
-                items.append(_WorkItem(
-                    state=state,
-                    key=("gjoin", tuple(a_blocks.shape), tuple(b_blocks.shape),
-                         dup_pairs, mults is not None),
-                    caps={"out": self._cap(4 * (n_a + n_b))},
-                    payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts),
-                             "dup_pairs": dup_pairs, "scheme": out_scheme,
-                             "mults": mults},
-                    group=("gjoin", state.qi),
-                ))
+            with span("stage"):
+                items: List[_WorkItem] = []
+                for state in active:
+                    a_scheme, a_blocks, a_cnts, n_a = state.parts[0]
+                    b_scheme, b_blocks, b_cnts, n_b = state.parts[1]
+                    common = [a for a in a_scheme[1:] if a in b_scheme]
+                    dup_pairs = tuple(
+                        (a_scheme.index(a), b_scheme.index(a)) for a in common
+                    )
+                    out_scheme = a_scheme + [
+                        a for i, a in enumerate(b_scheme) if i != 0 and a not in common
+                    ]
+                    mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
+                    items.append(_WorkItem(
+                        state=state,
+                        key=("gjoin", tuple(a_blocks.shape), tuple(b_blocks.shape),
+                             dup_pairs, mults is not None),
+                        caps={"out": self._cap(4 * (n_a + n_b))},
+                        payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts),
+                                 "dup_pairs": dup_pairs, "scheme": out_scheme,
+                                 "mults": mults},
+                        group=("gjoin", state.qi),
+                    ))
 
             if self.exact_caps:
                 self._apply_exact_caps(
@@ -2323,12 +2331,13 @@ class DataplaneExecutor:
                 n = int(cnts.sum())
                 it.state.parts[0:2] = [(it.payload["scheme"], blocks, cnts, n)]
 
-        for state in states:
-            scheme, blocks, cnts, n = state.parts[0]
-            state.n_out = n
-            if not self._materialize or n == 0:
-                continue
-            rows = unblockify(blocks, cnts)[:, 1:]     # drop the cell column
-            out_scheme = scheme[1:]
-            perm = [out_scheme.index(a) for a in state.program.out_cols]
-            state.rows = rows[:, perm]
+        with span("assemble"):
+            for state in states:
+                scheme, blocks, cnts, n = state.parts[0]
+                state.n_out = n
+                if not self._materialize or n == 0:
+                    continue
+                rows = unblockify(blocks, cnts)[:, 1:]     # drop the cell column
+                out_scheme = scheme[1:]
+                perm = [out_scheme.index(a) for a in state.program.out_cols]
+                state.rows = rows[:, perm]

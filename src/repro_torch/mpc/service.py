@@ -41,11 +41,15 @@ cache provenance; :attr:`JoinSession.stats` accumulates the session-wide
 :class:`ServiceStats`.  With ``verify`` on (the ``REPRO_VERIFY`` env var by
 default) a plan-cache miss runs the full static verifier
 (:mod:`repro_torch.mpc.verify`) before its first kernel, and a hit re-checks
-the fresh bindings.
+the fresh bindings.  Each request's phases are spans
+(:mod:`repro_torch.spans`) under the request's own id: ``stats``, ``plan``
+(``compile``, ``verify``) and ``execute``, with the executor's spans below
+it.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import queue as queue_mod
 import threading
@@ -61,6 +65,7 @@ from ..core.hypergraph import rho
 from ..core.planner import heavy_parameter
 from ..core.query import Attr, JoinQuery
 from ..core.taxonomy import HeavyStats, compute_stats
+from ..spans import Trace, activate, span
 from ..train.fault import Heartbeat, StragglerMonitor
 from .executors import DataplaneExecutor, DataplaneJoinResult, MPCJoinResult, SimulatorExecutor
 from .faults import (
@@ -187,6 +192,12 @@ class SessionResult:
     phases.  ``verified`` is True when the full static verifier ran
     (plan-cache miss); a hit re-checks bindings only and reports False.
 
+    ``spans_us`` holds the request's inclusive µs by span path (``stats``,
+    ``plan``, ``plan/compile``, ``execute``, ``execute/op.LocalJoin/stage``,
+    ...) and ``counters`` its counts by ``<span path>:<name>``
+    (``h2d_bytes``, ``d2h_bytes``, ``d2h_row_bytes``): every span its
+    execution ran, a shared coalesced execution included.
+
     Coalescing provenance: ``coalesced`` is True when the request ran inside
     a multi-query scheduler pass (its ``execute_us`` is then the pass's
     shared wall), ``batch_size`` is the size of its batch, ``deduplicated``
@@ -209,6 +220,8 @@ class SessionResult:
     e2e_us: float = 0.0
     verified: bool = False
     verify_us: float = 0.0
+    spans_us: Dict[str, float] = field(default_factory=dict)
+    counters: Dict[str, int] = field(default_factory=dict)
 
     @property
     def count(self) -> int:
@@ -257,6 +270,7 @@ class _Request:
     future: Optional[Future] = None       # async submits resolve through this
     t_enqueue: Optional[float] = None     # perf_counter at queue admission
     deadline: Optional[float] = None      # absolute monotonic budget (or None)
+    trace: Optional[Trace] = None         # the request's spans, from _execute_batch on
     # filled by _prepare:
     executor: object = None
     program: Optional[RoundProgram] = None
@@ -373,6 +387,7 @@ class JoinSession:
         self._monitor = StragglerMonitor(factor=straggler_factor, warmup=1)
         self._heartbeat = Heartbeat(heartbeat_path) if heartbeat_path is not None else None
         self._batch_seq = 0
+        self._request_ids = itertools.count()
 
     # -- single-query entry ---------------------------------------------------
 
@@ -699,49 +714,50 @@ class JoinSession:
                 lam = stats.lam if stats is not None else heavy_parameter(
                     self.p, float(rho(req.query))
                 )
-            t0 = time.perf_counter()
-            if self.backend == "simulator":
-                sim = MPCSimulator(self.p, seed=self.seed)
-                executor: object = SimulatorExecutor(sim, seed=self.seed)
-                executor.place_inputs(req.query, scatter_cache=share.get("scatter"))
-                if stats is None:
-                    stats = distributed_stats(sim, req.query, lam)
-            else:
-                executor = self.executor
-                if stats is None:
-                    stats = compute_stats(req.query, lam, unique_memo=share.get("unique"))
-            req.stats_us = (time.perf_counter() - t0) * 1e6
+            with span("stats") as sp:
+                if self.backend == "simulator":
+                    sim = MPCSimulator(self.p, seed=self.seed)
+                    executor: object = SimulatorExecutor(sim, seed=self.seed)
+                    executor.place_inputs(req.query, scatter_cache=share.get("scatter"))
+                    if stats is None:
+                        stats = distributed_stats(sim, req.query, lam)
+                else:
+                    executor = self.executor
+                    if stats is None:
+                        stats = compute_stats(req.query, lam, unique_memo=share.get("unique"))
+            req.stats_us = sp.us
 
-            key = plan_cache_key(req.query, stats, self.p, req.h_subsets, fuse)
-            cached = self._plans.get(key)
-            if cached is not None:
-                self._plans.move_to_end(key)
-                req.program = cached.rebind(req.query)
-                self.stats.plan_hits += 1
-                if self.verify:
-                    # warm path: the cached plan was verified when it was
-                    # compiled; only the fresh bindings need re-checking
-                    t0 = time.perf_counter()
-                    verify_bindings(req.program)
-                    req.verify_us = (time.perf_counter() - t0) * 1e6
-            else:
-                t0 = time.perf_counter()
-                req.program = compile_plan(req.query, stats, self.p,
-                                           h_subsets=req.h_subsets, fuse_semijoin=fuse,
-                                           verify=False)  # timed separately below
-                req.compile_us = (time.perf_counter() - t0) * 1e6
-                if self.verify:
-                    t0 = time.perf_counter()
-                    verify_program(req.program,
-                                   caps=getattr(executor, "_learned_caps", None))
-                    req.verify_us = (time.perf_counter() - t0) * 1e6
-                    req.verified = True
-                # cache plan metadata only: data is rebound on every hit
-                self._plans[key] = replace(req.program, query=None)
-                self.stats.plan_misses += 1
-                while len(self._plans) > self.plan_cache_size:
-                    self._plans.popitem(last=False)
-                    self.stats.plan_evictions += 1
+            with span("plan"):
+                key = plan_cache_key(req.query, stats, self.p, req.h_subsets, fuse)
+                cached = self._plans.get(key)
+                if cached is not None:
+                    self._plans.move_to_end(key)
+                    req.program = cached.rebind(req.query)
+                    self.stats.plan_hits += 1
+                    if self.verify:
+                        # warm path: the cached plan was verified when it was
+                        # compiled; only the fresh bindings need re-checking
+                        with span("verify") as sp:
+                            verify_bindings(req.program)
+                        req.verify_us = sp.us
+                else:
+                    with span("compile") as sp:
+                        req.program = compile_plan(req.query, stats, self.p,
+                                                   h_subsets=req.h_subsets, fuse_semijoin=fuse,
+                                                   verify=False)  # timed separately below
+                    req.compile_us = sp.us
+                    if self.verify:
+                        with span("verify") as sp:
+                            verify_program(req.program,
+                                           caps=getattr(executor, "_learned_caps", None))
+                        req.verify_us = sp.us
+                        req.verified = True
+                    # cache plan metadata only: data is rebound on every hit
+                    self._plans[key] = replace(req.program, query=None)
+                    self.stats.plan_misses += 1
+                    while len(self._plans) > self.plan_cache_size:
+                        self._plans.popitem(last=False)
+                        self.stats.plan_evictions += 1
             req.executor = executor
             req.plan_key = key
             req.plan_cache_hit = cached is not None
@@ -766,7 +782,9 @@ class JoinSession:
             # per-table memos of requests without their own
             share: Dict = {"scatter": {}, "unique": {}}
             for req in reqs:
-                self._prepare(req, req.batch if req.batch is not None else share)
+                req.trace = Trace(next(self._request_ids))
+                with activate(req.trace):
+                    self._prepare(req, req.batch if req.batch is not None else share)
 
             # deadline admission: a request already past its budget (e.g. it
             # queued behind a slow batch) fails before any dispatch
@@ -784,15 +802,14 @@ class JoinSession:
                 if req.error is not None:
                     continue
                 if self.backend == "simulator":
-                    t0 = time.perf_counter()
                     try:
-                        res = req.executor.run(req.program, materialize=req.materialize)
+                        with activate(req.trace), span("execute") as sp:
+                            res = req.executor.run(req.program, materialize=req.materialize)
                     except BaseException as e:
                         req.error = e
                         continue
                     outs[id(req)] = self._wrap(
-                        req, res, (time.perf_counter() - t0) * 1e6, len(reqs),
-                        coalesced=False, deduplicated=False,
+                        req, res, sp.us, len(reqs), coalesced=False, deduplicated=False,
                     )
                     continue
                 gkey = (coalesce_signature(req.program), req.materialize)
@@ -813,16 +830,16 @@ class JoinSession:
                         assign.append(len(reps))
                         reps.append(req)
                 deadlines = [r.deadline for r in reps if r.deadline is not None]
-                t0 = time.perf_counter()
                 try:
-                    results, bstats = self.executor.run_many(
-                        [r.program for r in reps],
-                        config=RunConfig(
-                            materialize=members[0].materialize,
-                            deadline=min(deadlines) if deadlines else None,
-                            fault_plan=self.fault_plan,
-                        ),
-                    )
+                    with activate(*(r.trace for r in members)), span("execute") as sp:
+                        results, bstats = self.executor.run_many(
+                            [r.program for r in reps],
+                            config=RunConfig(
+                                materialize=members[0].materialize,
+                                deadline=min(deadlines) if deadlines else None,
+                                fault_plan=self.fault_plan,
+                            ),
+                        )
                 except BaseException as e:
                     if len(reps) == 1:
                         for req in members:
@@ -836,7 +853,7 @@ class JoinSession:
                         self.stats.degraded_fallbacks += 1
                         self._run_serial_fallback(members, reps, assign, outs, len(reqs))
                     continue
-                execute_us = (time.perf_counter() - t0) * 1e6
+                execute_us = sp.us
                 self._absorb(bstats)
                 coalesced = len(members) > 1
                 for req, ri in zip(members, assign):
@@ -901,19 +918,20 @@ class JoinSession:
         submit, because routing salts come from the query-unqualified stage
         key, never from the batch's shape."""
         rep_out: List = []
-        for rep in reps:
-            t1 = time.perf_counter()
+        for ri, rep in enumerate(reps):
+            traces = [req.trace for req, a in zip(members, assign) if a == ri]
             try:
-                res_list, bstats = self.executor.run_many(
-                    [rep.program],
-                    config=RunConfig(materialize=rep.materialize, deadline=rep.deadline,
-                                     fault_plan=self.fault_plan),
-                )
+                with activate(*traces), span("execute") as sp:
+                    res_list, bstats = self.executor.run_many(
+                        [rep.program],
+                        config=RunConfig(materialize=rep.materialize, deadline=rep.deadline,
+                                         fault_plan=self.fault_plan),
+                    )
             except BaseException as e:
                 rep_out.append(e)
                 continue
             self._absorb(bstats)
-            rep_out.append((res_list[0], (time.perf_counter() - t1) * 1e6))
+            rep_out.append((res_list[0], sp.us))
         for req, ri in zip(members, assign):
             o = rep_out[ri]
             if isinstance(o, BaseException):
@@ -955,6 +973,7 @@ class JoinSession:
             stats_us=req.stats_us, compile_us=req.compile_us, execute_us=execute_us,
             total_us=total_us, coalesced=coalesced, batch_size=batch_size,
             deduplicated=deduplicated, verified=req.verified, verify_us=req.verify_us,
+            spans_us=dict(req.trace.spans_us), counters=dict(req.trace.counters),
         )
 
     # -- batch entry ----------------------------------------------------------
