@@ -31,12 +31,33 @@ def _dedup_rows(a: np.ndarray) -> np.ndarray:
     return np.unique(a, axis=0)
 
 
+def rows_sorted_unique(a: np.ndarray) -> bool:
+    """True when the rows of the (n, k) array ``a``, read as int64, strictly
+    increase in lexicographic signed order: the order ``np.unique(axis=0)``
+    gives, so :func:`_dedup_rows` would hand them back unchanged.  One O(n·k)
+    pass over neighbouring rows, no sort."""
+    a = np.asarray(a, dtype=np.int64)
+    if a.shape[0] < 2:
+        return True
+    prev, nxt = a[:-1], a[1:]
+    less = np.zeros(a.shape[0] - 1, dtype=bool)
+    tied = np.ones(a.shape[0] - 1, dtype=bool)
+    for j in range(a.shape[1]):
+        less |= tied & (prev[:, j] < nxt[:, j])
+        tied &= prev[:, j] == nxt[:, j]
+    return bool(less.all())
+
+
 @dataclass(frozen=True)
 class Relation:
     """A binary (or unary) relation with named attributes.
 
     ``data`` has shape (n, arity); column j holds values of ``scheme[j]``.
-    Tuples are sets — constructors dedup rows.
+    Tuples are sets — constructors dedup rows: :meth:`make` and
+    :func:`query_from_arrays` give int64 rows sorted lexicographically and
+    unique (``np.unique(axis=0)``'s order).  A relation built with
+    ``Relation(...)`` directly holds whatever rows it was given, which may be
+    unsorted or repeated; :func:`rows_sorted_unique` tells the two apart.
 
     ``table`` optionally names the *physical* table behind this logical
     relation: self-join-shaped queries (e.g. the subgraph-enumeration

@@ -20,7 +20,7 @@ from typing import Dict, FrozenSet, Iterator, List, Optional, Sequence, Set, Tup
 import numpy as np
 
 from .hypergraph import Edge, Hypergraph
-from .query import Attr, JoinQuery, Relation
+from .query import Attr, JoinQuery, Relation, rows_sorted_unique
 
 
 @dataclass(frozen=True)
@@ -282,12 +282,34 @@ def heavy_masks(
     return out
 
 
+def sorted_rows(query: JoinQuery) -> Dict[Edge, bool]:
+    """Per edge, whether its relation's rows are sorted and unique
+    (:func:`rows_sorted_unique`), computed once per run like
+    :func:`heavy_masks` and once per distinct ``data`` object: the k
+    pattern-edge copies of one shared edge table pay for one O(m) check."""
+    seen: Dict[int, bool] = {}
+    out: Dict[Edge, bool] = {}
+    for rel in query.relations:
+        key = id(rel.data)      # the query holds every array alive meanwhile
+        if key not in seen:
+            seen[key] = rows_sorted_unique(rel.data)
+        out[rel.edge] = seen[key]
+    return out
+
+
+def _residual(scheme: Tuple[Attr, ...], rows: np.ndarray, ordered: bool) -> Relation:
+    if ordered:
+        return Relation(scheme=scheme, data=np.asarray(rows, dtype=np.int64))
+    return Relation.make(scheme, rows)
+
+
 def residual_relations(
     query: JoinQuery,
     stats: HeavyStats,
     plan: HPlan,
     eta: Configuration,
     masks: Optional[Dict[Edge, Tuple[np.ndarray, np.ndarray]]] = None,
+    ordered: Optional[Dict[Edge, bool]] = None,
 ) -> Optional[Dict[Tuple[Edge, Tuple[Attr, ...]], Relation]]:
     """Materialize Q'(η) in one process (oracle path for tests; the distributed path
     lives in repro.mpc.engine). Returns None if some inactive edge rules η out.
@@ -296,7 +318,18 @@ def residual_relations(
     distinct unary relations over the same attribute, so e is part of the key.
 
     ``masks`` optionally supplies precomputed :func:`heavy_masks` so a caller
-    evaluating many configurations does not recompute them per stage.
+    evaluating many configurations does not recompute them per stage;
+    ``ordered`` likewise supplies :func:`sorted_rows` (checked here per
+    relation when absent).
+
+    Every residual comes back sorted and unique, as :meth:`Relation.make`
+    gives it.  Where the parent's rows already are, the residual is built
+    from the masked rows with no ``np.unique``, which would return them
+    unchanged: a masked subset of strictly increasing rows is strictly
+    increasing, and so are a cross edge's light values, since the rows kept
+    share the heavy column's value η(X) and the parent's (x, y) pairs are
+    unique and ordered by x, then y.  Any other parent (``Relation(...)``
+    built directly) is deduplicated as before.
     """
     h = set(plan.h_set)
     out: Dict[Tuple[Edge, Tuple[Attr, ...]], Relation] = {}
@@ -313,16 +346,17 @@ def residual_relations(
         else:
             hx = stats.is_heavy(x_attr, rel.column(x_attr))
             hy = stats.is_heavy(y_attr, rel.column(y_attr))
+        sorted_parent = ordered[e] if ordered is not None else rows_sorted_unique(rel.data)
         if len(inter) == 0:
             sel = ~hx & ~hy
-            out[(e, rel.scheme)] = Relation.make(rel.scheme, rel.data[sel])
+            out[(e, rel.scheme)] = _residual(rel.scheme, rel.data[sel], sorted_parent)
         else:
             (heavy_attr,) = inter
             light_attr = y_attr if heavy_attr == x_attr else x_attr
             heavy_col = rel.column(heavy_attr)
             light_is = ~(hy if light_attr == y_attr else hx)
             sel = (heavy_col == eta.value(heavy_attr)) & light_is
-            out[(e, (light_attr,))] = Relation.make(
-                (light_attr,), rel.column(light_attr)[sel].reshape(-1, 1)
+            out[(e, (light_attr,))] = _residual(
+                (light_attr,), rel.column(light_attr)[sel].reshape(-1, 1), sorted_parent
             )
     return out

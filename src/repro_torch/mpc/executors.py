@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.query import Attr, JoinQuery, Relation, reference_join
-from ..core.taxonomy import heavy_masks, residual_relations
+from ..core.taxonomy import heavy_masks, residual_relations, sorted_rows
 from ..dataplane.exchange import to_host
 from ..device import resolve_device
 from ..spans import count, span
@@ -1500,14 +1500,20 @@ class DataplaneExecutor:
         query, stats = program.query, program.stats
         with span("carve"):
             masks = heavy_masks(query, stats)   # once per run, not once per stage
+            ordered = sorted_rows(query)        # likewise, once per distinct table
             staged_states = []
             for state in states:
                 plan = state.stage.plan
-                residuals = residual_relations(query, stats, plan, state.stage.cfg.eta, masks=masks)
+                residuals = residual_relations(query, stats, plan, state.stage.cfg.eta,
+                                               masks=masks, ordered=ordered)
                 if residuals is None:
                     raise RuntimeError(
                         f"stage {state.skey} compiled for an infeasible η — compiler bug"
                     )
+                # rows carved, and those of unsorted parents, which np.unique built
+                count("rows", sum(len(r) for r in residuals.values()))
+                count("dedup_rows", sum(len(r) for (e, _), r in residuals.items()
+                                        if not ordered[e]))
                 # host view of R''_X = ∩ unary pieces decides the stage's fate the
                 # way the simulator's geometry does
                 host_piece: Dict[Attr, np.ndarray] = {}
@@ -1516,7 +1522,7 @@ class DataplaneExecutor:
                     for e in plan.cross_edges:
                         if x not in e:
                             continue
-                        pv = np.unique(residuals[(e, (x,))].data[:, 0])
+                        pv = residuals[(e, (x,))].data[:, 0]   # sorted and unique
                         vals = pv if vals is None else np.intersect1d(vals, pv, assume_unique=True)
                     host_piece[x] = vals
                 if any(host_piece[x].size == 0 for x in plan.isolated):
