@@ -55,11 +55,14 @@ def local_sorted_join(
     ka: int, kb: int, cap_out: int,
     a_keys: Optional[torch.Tensor] = None,         # optional precomputed (S, capA)
     b_keys: Optional[torch.Tensor] = None,         # join keys (pads may be any value)
+    b_cols: Optional[Sequence[int]] = None,        # B's columns to emit
 ):
-    """→ (out (S, cap_out, wa+wb-1), count (S,), overflow (S,)).  Key written
-    once (A's columns, then B's non-key columns).  ``a_keys``/``b_keys``
-    override the key columns (composite-key joins pass folded keys)."""
-    s, capa, wa = a_rows.shape
+    """→ (out (S, cap_out, wa+len(b_cols)), count (S,), overflow (S,)).  Key
+    written once: A's columns, then ``b_cols`` (default: B's non-key
+    columns); only those are gathered from B, and the output is masked in
+    place.  ``a_keys``/``b_keys`` override the key columns (composite-key
+    joins pass folded keys)."""
+    s, capa, _ = a_rows.shape
     _, capb, wb = b_rows.shape
     dev = a_rows.device
     a_keys = a_rows[:, :, ka] if a_keys is None else a_keys
@@ -85,14 +88,13 @@ def local_sorted_join(
     valid = t < n_valid[:, None]
 
     # gather output rows through the sort permutation (composed index gathers)
-    a_part = take_rows(a_rows, a_ord.gather(1, a_idx.to(torch.int64)))
-    b_cols = [c for c in range(wb) if c != kb]
+    out = take_rows(a_rows, a_ord.gather(1, a_idx.to(torch.int64)))
+    b_cols = [c for c in range(wb) if c != kb] if b_cols is None else list(b_cols)
     if b_cols:
-        b_part = take_rows(b_rows, b_ord.gather(1, b_idx.to(torch.int64)))[:, :, b_cols]
-        out = torch.cat([a_part, b_part], dim=2)
-    else:
-        out = a_part
-    out = torch.where(valid[:, :, None], out, torch.zeros_like(out))
+        b_part = take_rows(b_rows[:, :, b_cols], b_ord.gather(1, b_idx.to(torch.int64)))
+        out = torch.cat([out, b_part], dim=2)
+        del b_part
+    out.masked_fill_(~valid[:, :, None], 0)
     return out, n_valid.to(torch.int32), overflow
 
 
@@ -220,19 +222,22 @@ def local_join_filtered(a_rows, a_count, b_rows, b_count, ka: int, kb: int, cap_
     mixed-radix *packing* when ``key_mults`` is given (the executor checked
     the key space fits int32), dense lexicographic *ranking* otherwise — so
     ``cap_out`` meters only true matches.  Output scheme is A's columns then
-    B's columns minus kb and minus the dup b_cols."""
+    B's columns minus kb and minus the dup b_cols.
+
+    Where every column of B is in the folded key and B is a set (a routed
+    relation), each A row matches at most one B row: the level is a
+    semijoin, and it emits the kept A rows in their stable key order
+    without gathering anything of B."""
     if not dup_pairs:
         return local_sorted_join(a_rows, a_count, b_rows, b_count, ka, kb, cap_out)
-    wa, wb = a_rows.shape[2], b_rows.shape[2]
+    wb = b_rows.shape[2]
     a_keys, b_keys = _folded_keys(a_rows, a_count, b_rows, b_count, ka, kb,
                                   dup_pairs, key_mults)
-    out, cnt, ovf = local_sorted_join(
+    dup_b = {cb for _, cb in dup_pairs}
+    return local_sorted_join(
         a_rows, a_count, b_rows, b_count, ka, kb, cap_out, a_keys=a_keys, b_keys=b_keys,
+        b_cols=[c for c in range(wb) if c != kb and c not in dup_b],
     )
-    b_cols = [c for c in range(wb) if c != kb]
-    drop = {wa + b_cols.index(cb) for _, cb in dup_pairs}
-    keep_cols = [c for c in range(out.shape[2]) if c not in drop]
-    return out[:, :, keep_cols], cnt, ovf
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.query import Attr, JoinQuery, Relation, reference_join
 from ..core.taxonomy import heavy_masks, residual_relations, sorted_rows
@@ -832,26 +833,31 @@ def _pull_rows(rows, counts):
 
 
 def _pack_radices(a_blocks, b_blocks, dup_pairs) -> Optional[np.ndarray]:
-    """Host-side eligibility check for packed int32 composite join keys.
+    """Eligibility check for packed int32 composite join keys.
 
     When every key column (cell, dup-attr...) is non-negative and the
     mixed-radix product (max_cell + 1) · Π (max_dup_i + 1) fits int32, the
     tuple packs collision-free into one int32 word.  Returns the per-dup-column
     radices, or None for the ranked fallback.  Padding rows are zeros, so
-    block-level min/max are exact bounds for the valid prefixes."""
+    block-level min/max (with 0) are exact bounds for the valid prefixes.
+    The blocks are host arrays or tensors; a tensor's minima and maxima are
+    computed where it lives and read back in one transfer."""
     if not dup_pairs:
         return None
-    cols_a = [0] + [ca for ca, _ in dup_pairs]
-    cols_b = [0] + [cb for _, cb in dup_pairs]
+    cols = [(0, 0)] + list(dup_pairs)
+    a, b = torch.as_tensor(a_blocks), torch.as_tensor(b_blocks)
+    ext = [torch.stack(torch.aminmax(x[:, :, c])) if x[:, :, c].numel()
+           else torch.zeros(2, dtype=x.dtype, device=x.device)
+           for ca, cb in cols for x, c in ((a, ca), (b, cb))]
+    ext = torch.stack(ext).cpu().tolist()     # [[min, max]] of a's and b's columns
     lim = np.iinfo(np.int32).max
     space = 1
     rads = []
-    for i, (ca, cb) in enumerate(zip(cols_a, cols_b)):
-        av = np.asarray(a_blocks)[:, :, ca]
-        bv = np.asarray(b_blocks)[:, :, cb]
-        if int(np.min(av, initial=0)) < 0 or int(np.min(bv, initial=0)) < 0:
+    for i in range(len(cols)):
+        (a_lo, a_hi), (b_lo, b_hi) = ext[2 * i], ext[2 * i + 1]
+        if min(a_lo, b_lo) < 0:
             return None
-        hi = int(max(np.max(av, initial=0), np.max(bv, initial=0))) + 1
+        hi = max(a_hi, b_hi, 0) + 1
         if i == 0:
             space = hi
         else:
@@ -900,8 +906,10 @@ class _StageState:
     piece_salt: Dict[Attr, int] = field(default_factory=dict)
     piece_n: Dict[Attr, int] = field(default_factory=dict)
     geo: Optional[StageGeometry] = None
-    routed: Optional[List] = None    # [(scheme incl. cell col, blocks, counts, n)]
-    parts: Optional[List] = None     # LocalJoin chain worklist
+    #: [(scheme incl. cell col, blocks, counts, n)]: GridRoute's blocks are
+    #: device tensors for the LocalJoin chain, ShareRoute's host arrays
+    routed: Optional[List] = None
+    parts: Optional[List] = None     # CellJoin chain worklist
     #: general route: per-relation staged host blocks, indexed by relation
     #: position — [(scheme, blocks, counts, n)], updated in place by the
     #: TreeSemiJoin sweeps.
@@ -933,6 +941,27 @@ class _WorkItem:
     result: object = None
 
 
+@dataclass
+class _Chain:
+    """One stage's LocalJoin chain, over all of its machines or a contiguous
+    range of them (``machine_range``, absolute): ``parts`` [(scheme incl.
+    the cell column, blocks (machines, cap, w) on the device, counts
+    (machines,) on the host, valid rows)], and ``done`` [(rows, compacted
+    rows on the device or None)] of its finished ranges, in machine order."""
+
+    state: _StageState
+    parts: List
+    machine_range: Optional[Tuple[int, int]] = None
+    done: List = field(default_factory=list)
+
+    def machines(self, lo: int, hi: int) -> "_Chain":
+        """The chain over its machines [lo, hi): views of every part."""
+        base = self.machine_range[0] if self.machine_range else 0
+        parts = [(scheme, blocks[lo:hi], cnts[lo:hi], int(cnts[lo:hi].sum()))
+                 for scheme, blocks, cnts, _ in self.parts]
+        return _Chain(state=self.state, parts=parts, machine_range=(base + lo, base + hi))
+
+
 class DataplaneExecutor:
     """Runs compiled :class:`RoundProgram`\\ s among ``p`` machines held on
     one device.
@@ -948,9 +977,12 @@ class DataplaneExecutor:
       BroadcastSizes   piece counts (already on the host) → `stage_geometry`
       GridRoute        `batched_sharded_grid_route`: isolated pieces to their
                        CP cells, light residents to their HyperCube shares,
-                       every copy tagged with its Lemma 3.2 virtual cell
+                       every copy tagged with its Lemma 3.2 virtual cell;
+                       the routed blocks stay on the device
       LocalJoin        a chain of communication-free colocated joins keyed on
-                       the cell column
+                       the cell column, its levels left on the device and
+                       only the answer's rows pulled; a level past the
+                       device's budget runs over slices of its machines
       TreeSemiJoin     general route: per join-tree edge, the filtering side's
                        packed keys `batched_sharded_intersect`-ed, then the
                        filtered side `batched_sharded_semijoin`-ed under the
@@ -1168,11 +1200,12 @@ class DataplaneExecutor:
                         chunks.append(state.rows)
                 rows_out = None
                 if materialize:
-                    rows_out = (
-                        np.concatenate(chunks, axis=0)
-                        if chunks
-                        else np.zeros((0, len(program.out_cols)), dtype=np.int64)
-                    )
+                    if len(chunks) == 1 and not program.emit:
+                        rows_out = chunks[0]     # one stage's rows, made by this run
+                    elif chunks:
+                        rows_out = np.concatenate(chunks, axis=0)
+                    else:
+                        rows_out = np.zeros((0, len(program.out_cols)), dtype=np.int64)
                 results.append(DataplaneJoinResult(
                     p=self.p,
                     count=sum(counts.values()),
@@ -1235,11 +1268,20 @@ class DataplaneExecutor:
         return 1 << max(0, int(s - 1).bit_length())
 
     @staticmethod
-    def _stack(arrs, s_pad: int) -> np.ndarray:
-        """Stack per-stage host blocks along a new leading stage axis and
-        zero-pad to ``s_pad`` (padded stages carry count 0 — inert rows that
-        cannot overflow)."""
-        x = np.stack(list(arrs))
+    def _stack(arrs, s_pad: int):
+        """Stack per-stage blocks along a new leading stage axis and zero-pad
+        to ``s_pad`` (padded stages carry count 0 — inert rows that cannot
+        overflow).  Host arrays stack on the host, tensors where they live;
+        a lone tensor that needs no padding is viewed, not copied."""
+        arrs = list(arrs)
+        if isinstance(arrs[0], torch.Tensor):
+            if len(arrs) == s_pad == 1:
+                return arrs[0][None]
+            x = torch.stack(arrs)
+            if x.shape[0] < s_pad:
+                x = torch.cat([x, x.new_zeros((s_pad - x.shape[0],) + tuple(x.shape[1:]))])
+            return x
+        x = np.stack(arrs)
         if x.shape[0] < s_pad:
             x = np.concatenate([x, np.zeros((s_pad - x.shape[0],) + x.shape[1:], x.dtype)])
         return x
@@ -1252,6 +1294,18 @@ class DataplaneExecutor:
 
         def finalize(out=out, c=c):
             out, c = _pull_rows(out[:s], c[:s])
+            return [(out[i], c[i]) for i in range(s)]
+
+        return finalize, ovf[:s]
+
+    @staticmethod
+    def _device_rows_post(outs, s: int):
+        """Postprocessor for (rows, counts, ovf) primitives whose rows stay on
+        the device for the next op: ``finalize`` pulls only the counts."""
+        out, c, ovf = outs
+
+        def finalize(out=out, c=c):
+            c = to_host(c[:s])
             return [(out[i], c[i]) for i in range(s)]
 
         return finalize, ovf[:s]
@@ -1826,7 +1880,8 @@ class DataplaneExecutor:
                     )
                 if count:
                     return fn, args, partial(self._hist_post, s=s)
-                return fn, args, partial(self._rows_counts_post, s=s)
+                # the routed fragments stay on the device for LocalJoin
+                return fn, args, partial(self._device_rows_post, s=s)
             return dispatch
 
         if self.exact_caps:
@@ -1848,8 +1903,10 @@ class DataplaneExecutor:
                 scheme = ["#cell", it.payload["x"]]
             it.state.routed[it.payload["pos"]] = (scheme, rows, cnts, n)
 
-    def _make_colocated_dispatch(self, count: bool):
-        """Bucket dispatch for one level of in-cell colocated joins."""
+    def _make_colocated_dispatch(self, count: bool, keep: bool = False):
+        """Bucket dispatch for one level of in-cell colocated joins; with
+        ``keep`` the emitted rows stay on the device (only counts and
+        overflow are read back)."""
         from ..dataplane.join import (
             batched_sharded_colocated_join,
             batched_sharded_colocated_join_count,
@@ -1880,7 +1937,8 @@ class DataplaneExecutor:
                 a, ac, b, bc, 0, 0, cap_out=bucket[0].caps["out"], dup_pairs=dup_pairs,
                 key_mults=km, device=self.device, invoke=False,
             )
-            return fn, args, partial(self._rows_counts_post, s=s)
+            post = self._device_rows_post if keep else self._rows_counts_post
+            return fn, args, partial(post, s=s)
         return dispatch
 
     def _lower_local_join(self, program, states, op) -> None:
@@ -1889,77 +1947,205 @@ class DataplaneExecutor:
         on the cell column — attributes shared beyond the cell folded into
         the join key, disconnected components and CP lists combined as
         in-cell cartesian factors.  Each chain level batches every stage still
-        joining; the chain is ordered greedily by shared attributes."""
-        from ..dataplane.exchange import unblockify
+        joining; the chain is ordered greedily by shared attributes.
 
+        Where rows cross to the host: GridRoute leaves the routed fragments
+        on the device, and every level's rows stay there as the next level's
+        input (only each level's counts and overflow flags are read back,
+        and the packing radices' minima and maxima).  When a stage's chain
+        has one part left, its valid rows are compacted on the device into
+        the output column order, and only those rows are pulled, once per
+        stage, in the ``assemble`` span.
+
+        When a level is sliced: once its capacities are known (counted, or
+        learned), a level whose working bytes (`_level_bytes`) pass
+        `_level_budget` — half of what the device's allocator can still hand
+        out — runs over contiguous ranges of machines instead, each range
+        taking the rest of the chain (further sliced where needed) before
+        the next, in a ``slice`` span.  A machine's rows do not depend on the
+        other machines, so the rows and their order are those of the
+        unsliced chain.
+
+        Counters: ``level_rows_max``, the most valid rows one level held on
+        the device at once (a slice's, where sliced); ``pulled_rows``, the
+        rows pulled to the host."""
+        chains = []
         for state in states:
             if state.routed is None:
                 raise DataplaneUnsupported("LocalJoin before GridRoute")
-            state.parts = list(state.routed)
+            chains.append(_Chain(state=state, parts=list(state.routed)))
+            state.routed = None             # the chain holds the fragments now
+        count("level_rows_max", self._join_chain(op, chains))
 
+        with span("assemble"):
+            for chain in chains:
+                state = chain.state
+                state.n_out = sum(n for n, _ in chain.done)
+                pieces = [rows for n, rows in chain.done if n and rows is not None]
+                chain.done = []
+                if not pieces:
+                    continue
+                rows = to_host(pieces[0] if len(pieces) == 1 else torch.cat(pieces))
+                del pieces
+                count("d2h_row_bytes", rows.nbytes)
+                count("pulled_rows", rows.shape[0])
+                # widened on the host by torch, which spreads it over the cores
+                state.rows = torch.from_numpy(rows).to(torch.int64).numpy()
+
+    def _join_chain(self, op, chains) -> int:
+        """Run ``chains`` to their last level, slicing a level over its
+        machines where it would pass the budget (each slice is sized and
+        counted again on its own machines); each chain ends with its
+        compacted rows in ``done``.  → the most valid rows one level held."""
+        most = 0
         while True:
-            active = [state for state in states if len(state.parts) >= 2]
+            active = [chain for chain in chains if len(chain.parts) >= 2]
             if not active:
                 break
             with span("stage"):
-                items: List[_WorkItem] = []
-                for state in active:
-                    a_scheme = state.parts[0][0]
-                    n_parts = len(state.parts)
-                    j_best = max(
-                        range(1, n_parts),
-                        key=lambda j: len(
-                            [a for a in a_scheme[1:] if a in state.parts[j][0]]
-                        ) * n_parts - j,
-                    )
-                    if j_best != 1:
-                        state.parts[1], state.parts[j_best] = state.parts[j_best], state.parts[1]
-                    a_scheme, a_blocks, a_cnts, n_a = state.parts[0]
-                    b_scheme, b_blocks, b_cnts, n_b = state.parts[1]
-                    common = [a for a in a_scheme[1:] if a in b_scheme]
-                    dup_pairs = tuple((a_scheme.index(a), b_scheme.index(a)) for a in common)
-                    out_scheme = a_scheme + [
-                        a for i, a in enumerate(b_scheme) if i != 0 and a not in common
-                    ]
-                    mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
-                    items.append(_WorkItem(
-                        state=state,
-                        key=("join", tuple(a_blocks.shape), tuple(b_blocks.shape),
-                             dup_pairs, mults is not None),
-                        caps={"out": self._cap(4 * (n_a + n_b))},
-                        payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts),
-                                 "dup_pairs": dup_pairs, "scheme": out_scheme, "mults": mults},
-                        group=("join", state.skey),
-                    ))
-
+                items = [self._chain_item(chain) for chain in active]
             if self.exact_caps:
                 self._apply_exact_caps(
                     op.round, items, self._make_colocated_dispatch(count=True),
                     caps_from_count=lambda c: {"out": _quant(max(1, int(c.max())))},
                     floor={"out": 16},
                 )
-
-            for it in self._run_buckets(op.round, items, self._make_colocated_dispatch(count=False)):
-                blocks, cnts = it.result
-                n = int(cnts.sum())
-                it.state.parts[0:2] = [(it.payload["scheme"], blocks, cnts, n)]
-
+            per = self._slice_width(items)
+            if per is None:
+                most = max(most, self._chain_level(op, items))
+                del items
+                continue
+            del items
+            width = active[0].parts[0][1].shape[0]
+            for lo in range(0, width, per):
+                with span("slice"):
+                    subs = [chain.machines(lo, min(width, lo + per)) for chain in active]
+                    most = max(most, self._join_chain(op, subs))
+                    for chain, sub in zip(active, subs):
+                        chain.done += sub.done
+                    del subs
+            for chain in active:
+                chain.parts = []
         with span("assemble"):
-            for state in states:
-                scheme, blocks, cnts, n = state.parts[0]
-                state.n_out = n
-                if not self._materialize or n == 0:
-                    continue
-                rows = unblockify(blocks, cnts)[:, 1:]     # drop the cell column
-                out_scheme = scheme[1:]
-                for a in state.stage.plan.h_set:
-                    rows = np.concatenate(
-                        [rows, np.full((rows.shape[0], 1), state.stage.cfg.eta.value(a), np.int64)],
-                        axis=1,
-                    )
-                    out_scheme = out_scheme + [a]
-                perm = [out_scheme.index(a) for a in state.program.out_cols]
-                state.rows = rows[:, perm]
+            for chain in chains:
+                if len(chain.parts) == 1:
+                    self._finish_chain(chain)
+        return most
+
+    def _chain_item(self, chain) -> _WorkItem:
+        """The work item of a chain's next level: its first part joined with
+        the part sharing the most attributes with it (ties → the earliest)."""
+        state, parts = chain.state, chain.parts
+        a_scheme = parts[0][0]
+        n_parts = len(parts)
+        j_best = max(
+            range(1, n_parts),
+            key=lambda j: len([a for a in a_scheme[1:] if a in parts[j][0]]) * n_parts - j,
+        )
+        if j_best != 1:
+            parts[1], parts[j_best] = parts[j_best], parts[1]
+        group = ("join", state.skey)
+        if chain.machine_range is not None:
+            group += chain.machine_range
+        it = self._join_item(state, parts[0], parts[1], "join", group)
+        it.payload["chain"] = chain
+        return it
+
+    def _join_item(self, state, a_part, b_part, tag: str, group: Tuple) -> _WorkItem:
+        """The work item joining two chain parts (scheme incl. the cell
+        column, blocks, counts, valid rows) on the cell column, attributes
+        shared beyond the cell folded into the key via ``dup_pairs``; the
+        output scheme is a's followed by b's new attributes."""
+        a_scheme, a_blocks, a_cnts, n_a = a_part
+        b_scheme, b_blocks, b_cnts, n_b = b_part
+        common = [a for a in a_scheme[1:] if a in b_scheme]
+        dup_pairs = tuple((a_scheme.index(a), b_scheme.index(a)) for a in common)
+        out_scheme = a_scheme + [a for i, a in enumerate(b_scheme) if i != 0 and a not in common]
+        mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
+        return _WorkItem(
+            state=state,
+            key=(tag, tuple(a_blocks.shape), tuple(b_blocks.shape), dup_pairs,
+                 mults is not None),
+            caps={"out": self._cap(4 * (n_a + n_b))},
+            payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts), "dup_pairs": dup_pairs,
+                     "scheme": out_scheme, "mults": mults},
+            group=group,
+        )
+
+    def _chain_level(self, op, items) -> int:
+        """Run one chain level; each chain's first two parts become the
+        level's rows, left on the device.  → the level's valid rows."""
+        rows = 0
+        for it in self._run_buckets(op.round, items,
+                                    self._make_colocated_dispatch(count=False, keep=True)):
+            blocks, cnts = it.result
+            n = int(cnts.sum())
+            rows += n
+            it.payload["chain"].parts[0:2] = [(it.payload["scheme"], blocks, cnts, n)]
+            it.payload = it.result = None     # drop the level's inputs
+        return rows
+
+    #: working bytes of a chain level, per slot of each input block (its
+    #: folded key, sorted with its order, and match bounds) and per output slot
+    #: (the pair indices and their gathers) beside the output rows, twice
+    _KEY_SLOT_BYTES = 48
+    _PAIR_SLOT_BYTES = 40
+
+    def _level_bytes(self, it) -> int:
+        """Device bytes a chain level's work item takes while it runs, beyond
+        its inputs: from the blocks' shapes and the emit capacity."""
+        (a, _), (b, _) = it.payload["a"], it.payload["b"]
+        k, cap_a, _ = a.shape
+        cap_b = b.shape[1]
+        row = 2 * a.element_size() * len(it.payload["scheme"])
+        return k * ((cap_a + cap_b) * self._KEY_SLOT_BYTES
+                    + it.caps["out"] * (self._PAIR_SLOT_BYTES + row))
+
+    def _level_budget(self) -> Optional[int]:
+        """Bytes one chain level may take on the device: half of what the
+        allocator can still hand out (the device's free memory and what the
+        allocator caches unused).  None off a CUDA device: no slicing."""
+        if self.device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(self.device)
+        cached = torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        return (free + cached) // 2
+
+    def _slice_width(self, items) -> Optional[int]:
+        """Machines per slice of a chain level whose working bytes pass the
+        budget, or None where it fits (or cannot be cut finer than the whole
+        level)."""
+        budget = self._level_budget()
+        if budget is None:
+            return None
+        need = sum(self._level_bytes(it) for it in items)
+        if need <= budget:
+            return None
+        width = items[0].payload["a"][0].shape[0]
+        per = max(1, width * budget // need)
+        return per if per < width else None
+
+    def _finish_chain(self, chain) -> None:
+        """A chain's last part: its valid rows compacted on the device in the
+        program's output column order (η constants for the stage's heavy
+        attributes), kept in ``done`` until the assembly pulls them."""
+        from ..dataplane.exchange import valid_mask
+        from ..dataplane.join import to_dev
+
+        state = chain.state
+        scheme, blocks, cnts, n = chain.parts[0]
+        chain.parts = []
+        if not self._materialize or n == 0:
+            chain.done.append((n, None))
+            return
+        k, cap, _ = blocks.shape
+        valid = valid_mask(cap, to_dev(cnts, blocks.device)).reshape(-1)
+        flat = blocks.reshape(k * cap, -1)[valid]
+        cols = [flat[:, scheme.index(a)] if a in scheme[1:]
+                else torch.full((n,), state.stage.cfg.eta.value(a), dtype=flat.dtype,
+                                device=flat.device)
+                for a in state.program.out_cols]
+        chain.done.append((n, torch.stack(cols, dim=1)))
 
     # -- general-route lowering rules (arbitrary-arity programs) --------------
 
@@ -2284,8 +2470,8 @@ class DataplaneExecutor:
         colocated joins on the cell column, in the compiler's fixed join
         order (tree pre-order for acyclic, greedy connected for cyclic) —
         no reordering, so the chain shape is a pure function of the plan.
-        Attributes shared beyond the cell fold into the join key via
-        dup_pairs, exactly as in the binary LocalJoin chain."""
+        Each level's work item is built by `_join_item`, as in the binary
+        LocalJoin chain."""
         from ..dataplane.exchange import unblockify
 
         for state in states:
@@ -2298,28 +2484,9 @@ class DataplaneExecutor:
             if not active:
                 break
             with span("stage"):
-                items: List[_WorkItem] = []
-                for state in active:
-                    a_scheme, a_blocks, a_cnts, n_a = state.parts[0]
-                    b_scheme, b_blocks, b_cnts, n_b = state.parts[1]
-                    common = [a for a in a_scheme[1:] if a in b_scheme]
-                    dup_pairs = tuple(
-                        (a_scheme.index(a), b_scheme.index(a)) for a in common
-                    )
-                    out_scheme = a_scheme + [
-                        a for i, a in enumerate(b_scheme) if i != 0 and a not in common
-                    ]
-                    mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
-                    items.append(_WorkItem(
-                        state=state,
-                        key=("gjoin", tuple(a_blocks.shape), tuple(b_blocks.shape),
-                             dup_pairs, mults is not None),
-                        caps={"out": self._cap(4 * (n_a + n_b))},
-                        payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts),
-                                 "dup_pairs": dup_pairs, "scheme": out_scheme,
-                                 "mults": mults},
-                        group=("gjoin", state.qi),
-                    ))
+                items = [self._join_item(state, state.parts[0], state.parts[1], "gjoin",
+                                         ("gjoin", state.qi))
+                         for state in active]
 
             if self.exact_caps:
                 self._apply_exact_caps(
