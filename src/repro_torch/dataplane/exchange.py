@@ -79,6 +79,39 @@ def unblockify(blocks, counts) -> np.ndarray:
     return out.astype(np.int64)
 
 
+def spread_rows(rows: torch.Tensor, p: int, cap: int):
+    """Device twin of `blockify`: (n, w) rows, on their device → (blocks
+    (p, cap, w) int32, counts (p,) int32) there.  Machine i holds rows
+    [i·per, (i+1)·per), per = ceil(n/p), behind zero padding, exactly as
+    `blockify` lays them out; the values are taken as int32 unchecked."""
+    n, w = rows.shape
+    per = -(-n // p) if n else 0
+    if per > cap:
+        raise ValueError(f"cap {cap} < required {per}")
+    dev = rows.device
+    blocks = torch.zeros((p, cap, w), dtype=torch.int32, device=dev)
+    if n:
+        full, rest = divmod(n, per)
+        blocks[:full, :per] = rows[: full * per].reshape(full, per, w)
+        if rest:
+            blocks[full, :rest] = rows[full * per:]
+    counts = (n - per * torch.arange(p, device=dev)).clamp(0, per).to(torch.int32)
+    return blocks, counts
+
+
+def valid_rows(blocks: torch.Tensor, counts: torch.Tensor, n: int) -> torch.Tensor:
+    """Device twin of `unblockify`: the valid prefixes of blocks (p, cap, w)
+    in machine order → (n, w), gathered where the blocks live, dtype kept.
+    ``n`` is the sum of ``counts``, which the caller knows; the blocks may be
+    a strided view."""
+    dev = blocks.device
+    counts = counts.to(device=dev, dtype=torch.int64)
+    machine = torch.repeat_interleave(torch.arange(blocks.shape[0], device=dev), counts,
+                                      output_size=n)
+    starts = torch.cumsum(counts, 0) - counts
+    return blocks[machine, torch.arange(n, device=dev) - starts[machine]]
+
+
 def valid_mask(cap: int, counts: torch.Tensor) -> torch.Tensor:
     """(S,) counts → (S, cap) bool mask of each segment's valid prefix."""
     return torch.arange(cap, device=counts.device)[None, :] < counts.to(torch.int64)[:, None]

@@ -123,16 +123,21 @@ def local_semijoin(rows: torch.Tensor, count: torch.Tensor, col: int,
                    keys: torch.Tensor, kcount: torch.Tensor):
     """Per segment: keep rows (S, cap, w) whose rows[:, :, col] appears in
     keys[:, :kcount].  Output rows are reordered by key and compacted to a
-    valid prefix (multiset semantics)."""
+    valid prefix (multiset semantics).  Each key-sized temporary goes as soon
+    as it is used: the compaction, where the device holds the most, keeps
+    only the sorted rows and the membership mask."""
     s, cap, _ = rows.shape
     capk = keys.shape[1]
     rk = rows[:, :, col]
     rk = torch.where(valid_mask(cap, count), rk, _big_like(rk))
     rk_s, order = torch.sort(rk, dim=1, stable=True)
+    del rk
     rows_s = take_rows(rows, order)
+    del order
     kv = torch.sort(torch.where(valid_mask(capk, kcount), keys, _big_like(keys)), dim=1).values
     lower, upper = merge_join_counts(rk_s.contiguous(), kv.contiguous())
     member = (upper > lower) & (rk_s < BIG)
+    del lower, upper, rk_s, kv
     return _compact_prefix(rows_s, member)
 
 

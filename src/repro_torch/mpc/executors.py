@@ -910,9 +910,9 @@ class _StageState:
     #: device tensors for the LocalJoin chain, ShareRoute's host arrays
     routed: Optional[List] = None
     parts: Optional[List] = None     # CellJoin chain worklist
-    #: general route: per-relation staged host blocks, indexed by relation
-    #: position — [(scheme, blocks, counts, n)], updated in place by the
-    #: TreeSemiJoin sweeps.
+    #: general route: per-relation fragments on the device, indexed by
+    #: relation position — [(scheme, blocks, counts, n)], updated in place by
+    #: the TreeSemiJoin sweeps, released once ShareRoute has taken them.
     gparts: Optional[List] = None
     n_out: int = 0
     rows: Optional[np.ndarray] = None
@@ -986,7 +986,7 @@ class DataplaneExecutor:
       TreeSemiJoin     general route: per join-tree edge, the filtering side's
                        packed keys `batched_sharded_intersect`-ed, then the
                        filtered side `batched_sharded_semijoin`-ed under the
-                       same salt
+                       same salt; keys built and fragments kept on the device
       ShareRoute       general route: every relation `batched_sharded_grid_route`-d
                        over the LP share grid (every attribute a dimension)
       CellJoin         general route: the colocated-join chain on the cell
@@ -1301,12 +1301,13 @@ class DataplaneExecutor:
     @staticmethod
     def _device_rows_post(outs, s: int):
         """Postprocessor for (rows, counts, ovf) primitives whose rows stay on
-        the device for the next op: ``finalize`` pulls only the counts."""
+        the device for the next op: ``finalize`` pulls only the counts and
+        gives (rows, counts on the device, counts on the host)."""
         out, c, ovf = outs
 
         def finalize(out=out, c=c):
-            c = to_host(c[:s])
-            return [(out[i], c[i]) for i in range(s)]
+            c_host = to_host(c[:s])
+            return [(out[i], c[i], c_host[i]) for i in range(s)]
 
         return finalize, ovf[:s]
 
@@ -1895,7 +1896,7 @@ class DataplaneExecutor:
             )
 
         for it in self._run_buckets(op.round, items, make_dispatch(count=False)):
-            rows, cnts = it.result
+            rows, _, cnts = it.result
             n = int(cnts.sum())
             if it.key[0] == "hc":
                 scheme = ["#cell"] + list(it.payload["scheme"])
@@ -2078,7 +2079,7 @@ class DataplaneExecutor:
         rows = 0
         for it in self._run_buckets(op.round, items,
                                     self._make_colocated_dispatch(count=False, keep=True)):
-            blocks, cnts = it.result
+            blocks, _, cnts = it.result
             n = int(cnts.sum())
             rows += n
             it.payload["chain"].parts[0:2] = [(it.payload["scheme"], blocks, cnts, n)]
@@ -2150,15 +2151,18 @@ class DataplaneExecutor:
     # -- general-route lowering rules (arbitrary-arity programs) --------------
 
     def _ensure_general_staged(self, states) -> None:
-        """Stage every general program's base relations as host blocks.
+        """Stage every general program's base relations on the device.
 
         The general route has no residual carving: the whole input is the
         working set, so staging happens lazily at the first general op that
         needs device data (TreeSemiJoin for acyclic programs, ShareRoute for
-        cyclic ones).  An empty base relation empties the join outright —
-        the state keeps its per-H count entry at 0 (``skip_count`` stays
-        False), matching the simulator."""
-        from ..dataplane.exchange import blockify
+        cyclic ones).  Each relation's rows are checked against the int32
+        device word contract on the host, cross once as int32 and are spread
+        over the machines there as `blockify` spreads them; the fragments
+        stay on the device until ShareRoute has routed them.  An empty base
+        relation empties the join outright — the state keeps its per-H count
+        entry at 0 (``skip_count`` stays False), matching the simulator."""
+        from ..dataplane.exchange import INT32, spread_rows
 
         for state in states:
             if state.gparts is not None or state.empty:
@@ -2169,42 +2173,93 @@ class DataplaneExecutor:
                 continue
             state.gparts = []
             for rel in query.relations:
-                blocks, cnts = blockify(rel.data, self.p, self._block_cap(len(rel)))
+                data = torch.from_numpy(rel.data)
+                lo, hi = torch.aminmax(data)
+                if hi >= INT32.max or lo < INT32.min:
+                    raise ValueError("values exceed the int32 device word contract")
+                # narrowed into page-locked memory (cached by torch's host
+                # allocator), whose copy to the card runs at the link's rate
+                rows = torch.empty(data.shape, dtype=torch.int32,
+                                   pin_memory=self.device.type == "cuda")
+                rows.copy_(data)
+                count("h2d_bytes", rows.nbytes)
+                rows = rows.to(self.device, non_blocking=True)
+                blocks, cnts = spread_rows(rows, self.p, self._block_cap(len(rel)))
                 state.gparts.append((list(rel.scheme), blocks, cnts, len(rel)))
 
     @staticmethod
     def _general_key_cols(tgt_scheme, tgt_rows, src_scheme, src_rows, shared):
-        """One int64 join-key column per side over the ``shared`` attributes.
+        """One int64 join-key column per side over the ``shared`` attributes,
+        computed where the rows (n, w) live → (target keys, source keys,
+        whether the keys are ranks).
 
         Mixed-radix packs (``key = key·radix_j + v_j``) when every value is
-        non-negative and the radix product fits int32; otherwise both sides'
-        key tuples are densely ranked together (the key only needs to *agree*
-        across sides, not be order-preserving).  An empty ``shared`` — the
-        cartesian stitch edge between disconnected components — keys every
-        row 0, degenerating the semijoin to a non-emptiness filter."""
+        non-negative and the radix product fits int32 — the shared columns'
+        minima and maxima over both sides are read back once to decide;
+        otherwise both sides' key tuples are densely ranked together in
+        lexicographic order (the ranks ``np.unique(axis=0)`` gives; the key
+        only needs to *agree* across sides, but the rank also routes the
+        rows).  An empty ``shared`` — the cartesian stitch edge between
+        disconnected components — keys every row 0, degenerating the
+        semijoin to a non-emptiness filter."""
+        dev = tgt_rows.device
         if not shared:
-            return (
-                np.zeros(len(tgt_rows), np.int64),
-                np.zeros(len(src_rows), np.int64),
-            )
-        t = tgt_rows[:, [tgt_scheme.index(a) for a in shared]]
-        s = src_rows[:, [src_scheme.index(a) for a in shared]]
-        both = np.concatenate([t, s], axis=0)
-        if both.size and both.min() >= 0:
-            radices = both.max(axis=0).astype(np.int64) + 1
-            if np.prod(radices) <= np.iinfo(np.int32).max:
-                tk = np.zeros(len(t), np.int64)
-                sk = np.zeros(len(s), np.int64)
-                for j in range(len(shared)):
-                    tk = tk * radices[j] + t[:, j]
-                    sk = sk * radices[j] + s[:, j]
-                return tk, sk
-        _, inv = np.unique(both, axis=0, return_inverse=True)
-        inv = inv.astype(np.int64)
-        return inv[: len(t)], inv[len(t):]
+            return (torch.zeros(len(tgt_rows), dtype=torch.int64, device=dev),
+                    torch.zeros(len(src_rows), dtype=torch.int64, device=dev), False)
+        both = torch.cat([tgt_rows[:, [tgt_scheme.index(a) for a in shared]],
+                          src_rows[:, [src_scheme.index(a) for a in shared]]]).to(torch.int64)
+        n_t = len(tgt_rows)
+        lo, hi = to_host(torch.stack([both.amin(dim=0), both.amax(dim=0)])).tolist()
+        if min(lo) >= 0 and math.prod(h + 1 for h in hi) <= np.iinfo(np.int32).max:
+            key = both[:, 0]
+            for j in range(1, len(shared)):
+                key = key * (hi[j] + 1) + both[:, j]
+            return key[:n_t], key[n_t:], False
+        _, inv = torch.unique(both, dim=0, return_inverse=True)
+        return inv[:n_t], inv[n_t:], True
+
+    def _sweep_item(self, state, ei: int, op):
+        """Stage ``state``'s work item for edge ``ei`` of a sweep, on the
+        device → (item, whether its keys are ranks), or None where the
+        stage's tree has fewer edges.  The target's and the source's valid
+        rows are gathered in machine order, keyed (`_general_key_cols`), the
+        source's distinct keys and the keyed target spread over the machines
+        as `blockify` spreads them; the target's old fragment is dropped, as
+        is every temporary, before a round runs."""
+        from ..dataplane.exchange import spread_rows, valid_rows
+
+        edges = state.program.general.tree_edges
+        if ei >= len(edges):
+            return None
+        child, par, shared = edges[ei] if op.phase == "up" else edges[len(edges) - 1 - ei]
+        tgt, src = (par, child) if op.phase == "up" else (child, par)
+        tgt_scheme, tgt_blocks, tgt_cnts, n_tgt = state.gparts[tgt]
+        src_scheme, src_blocks, src_cnts, n_src = state.gparts[src]
+        state.gparts[tgt] = None                 # the filter round rebuilds it
+        tgt_rows = valid_rows(tgt_blocks, tgt_cnts, n_tgt)
+        del tgt_blocks, tgt_cnts
+        tk, sk, ranked = self._general_key_cols(
+            tgt_scheme, tgt_rows, src_scheme, valid_rows(src_blocks, src_cnts, n_src), shared
+        )
+        piece = torch.unique(sk, sorted=True)
+        del sk
+        m = len(piece)
+        pv, pc = spread_rows(piece[:, None], self.p, self._block_cap(m))
+        del piece
+        keyed = torch.cat([tgt_rows, tk.to(torch.int32)[:, None]], dim=1)
+        del tgt_rows, tk
+        kb, kc = spread_rows(keyed, self.p, self._block_cap(n_tgt))
+        return _WorkItem(
+            state=state,
+            key=("gsj-intersect", tuple(pv.shape[:2])),
+            caps={"slot": self._slot_cap(m), "out": self._cap(m)},
+            payload={"pv": pv[:, :, 0], "pc": pc, "rows": kb, "cnts": kc, "n": n_tgt,
+                     "tgt": tgt, "scheme": tgt_scheme, "col": len(tgt_scheme)},
+            group=("gsj-intersect", state.qi, ei),
+        ), ranked
 
     def _lower_tree_semijoin(self, program, states, op) -> None:
-        """One Yannakakis sweep over the GYO join tree.
+        """One Yannakakis sweep over the GYO join tree, on the device.
 
         For each tree edge — removal order for the up sweep, reversed for the
         down sweep — the filtering side's distinct key values are hash-
@@ -2215,8 +2270,19 @@ class DataplaneExecutor:
         (edge i+1 filters against edge i's output) but every live stage
         batches per edge.  Retry groups carry the query index: every general
         stage shares the query-unqualified skey, and one query's re-salt must
-        not reorder another's rows."""
-        from ..dataplane.exchange import blockify, salt_offset, unblockify
+        not reorder another's rows.
+
+        Where rows cross to the host: nowhere.  The fragments (``gparts``)
+        stay on the device from the base staging to ShareRoute; each edge's
+        inputs are built there (`_sweep_item`), the intersect's piece feeds
+        the filter round where it lies, and the filter's rows become the
+        target's fragment, the key column stripped by a copy.  Read back: the
+        shared columns' minima and maxima per edge, the overflow flags, and
+        the filter's counts.
+
+        Counters: ``edges``, the (stage, tree edge) pairs run; ``ranked_edges``,
+        those whose keys took the dense-rank fallback."""
+        from ..dataplane.exchange import salt_offset
         from ..dataplane.join import (
             batched_sharded_intersect,
             batched_sharded_semijoin,
@@ -2231,38 +2297,12 @@ class DataplaneExecutor:
             )
         for ei in range(n_edges):
             with span("stage"):
-                prep: List[_WorkItem] = []
-                for state in states:
-                    if state.empty:
-                        continue
-                    edges = state.program.general.tree_edges
-                    if ei >= len(edges):
-                        continue
-                    child, par, shared = (
-                        edges[ei] if op.phase == "up" else edges[len(edges) - 1 - ei]
-                    )
-                    tgt, src = (par, child) if op.phase == "up" else (child, par)
-                    tgt_scheme, tgt_blocks, tgt_cnts, n_tgt = state.gparts[tgt]
-                    src_scheme, src_blocks, src_cnts, _ = state.gparts[src]
-                    tgt_rows = unblockify(tgt_blocks, tgt_cnts)
-                    src_rows = unblockify(src_blocks, src_cnts)
-                    tk, sk = self._general_key_cols(
-                        tgt_scheme, tgt_rows, src_scheme, src_rows, shared
-                    )
-                    piece = np.unique(sk)
-                    pv, pc = blockify(piece, self.p, self._block_cap(piece.size))
-                    keyed = np.concatenate([tgt_rows, tk[:, None]], axis=1)
-                    kb, kc = blockify(keyed, self.p, self._block_cap(len(keyed)))
-                    prep.append(_WorkItem(
-                        state=state,
-                        key=("gsj-intersect", tuple(pv[:, :, 0].shape)),
-                        caps={"slot": self._slot_cap(piece.size),
-                              "out": self._cap(piece.size)},
-                        payload={"pv": pv[:, :, 0], "pc": pc, "rows": kb,
-                                 "cnts": kc, "n": n_tgt, "tgt": tgt,
-                                 "col": len(tgt_scheme)},
-                        group=("gsj-intersect", state.qi, ei),
-                    ))
+                built = [self._sweep_item(state, ei, op) for state in states if not state.empty]
+                prep = [it for it, _ in filter(None, built)]
+                ranked = sum(rk for _, rk in filter(None, built))
+                del built
+            count("edges", len(prep))
+            count("ranked_edges", ranked)
 
             if not prep:
                 continue
@@ -2290,7 +2330,6 @@ class DataplaneExecutor:
                     vals, cnts, ovf = outs
 
                     def finalize(vals=vals, cnts=cnts):
-                        vals, cnts = _pull_rows(vals[:s], cnts[:s])
                         return [(vals[i], cnts[i], salts[i]) for i in range(s)]
 
                     return finalize, ovf[:s]
@@ -2313,6 +2352,8 @@ class DataplaneExecutor:
                         payload=pl,
                         group=("gsj-filter", it.state.qi, ei),
                     ))
+                    it.payload = it.result = None
+                del prep, pieces
 
             def f_dispatch(bucket):
                 s, s_pad = len(bucket), self._pow2_stages(len(bucket))
@@ -2333,17 +2374,21 @@ class DataplaneExecutor:
                     rows, cnts, col, offs, pv, pc, cap_slot=caps["slot"],
                     cap_out=caps["out"], device=self.device, invoke=False,
                 )
-                return fn, args, partial(self._rows_counts_post, s=s)
+                return fn, args, partial(self._device_rows_post, s=s)
 
             for it in self._run_buckets(op.round, sj_items, f_dispatch):
-                blocks, cnts = it.result
-                n2 = int(cnts.sum())
-                tgt = it.payload["tgt"]
-                scheme = it.state.gparts[tgt][0]
-                # strip the appended key column
-                it.state.gparts[tgt] = (scheme, blocks[:, :, :-1], cnts, n2)
+                blocks, cnts, host_cnts = it.result
+                it.result = None
+                n2 = int(host_cnts.sum())
+                # the appended key column stripped by a copy: a view would
+                # keep the column's bytes alive up to ShareRoute's peak
+                it.state.gparts[it.payload["tgt"]] = (it.payload["scheme"],
+                                                      blocks[:, :, :-1].contiguous(), cnts, n2)
+                del blocks
                 if n2 == 0:
                     it.state.empty = True
+                it.payload = None
+            del sj_items
 
     def _lower_share_route(self, program, states, op) -> None:
         """Generalized HyperCube route: every output attribute is a grid
@@ -2384,6 +2429,9 @@ class DataplaneExecutor:
                         "cols": cols, "shares": shares, "strides": strides,
                         "table": table, "n": n,
                     }))
+                # the work items hold the fragments now: their device bytes
+                # go with this op, before CellJoin's
+                state.gparts = None
 
             group_fanout: Dict[Tuple, int] = {}
             for state, pos, pl in raw:
