@@ -887,7 +887,7 @@ class BatchRunStats:
 
 @dataclass
 class _StageState:
-    """Host-resident state of one (H, η) stage as it flows through the ops.
+    """State of one (H, η) stage as it flows through the ops.
 
     ``skip_count`` mirrors the simulator's geo.skip rule: a stage whose
     isolated R''_X is empty never reaches LocalJoin and contributes *no*
@@ -906,10 +906,9 @@ class _StageState:
     piece_salt: Dict[Attr, int] = field(default_factory=dict)
     piece_n: Dict[Attr, int] = field(default_factory=dict)
     geo: Optional[StageGeometry] = None
-    #: [(scheme incl. cell col, blocks, counts, n)]: GridRoute's blocks are
-    #: device tensors for the LocalJoin chain, ShareRoute's host arrays
+    #: the routed fragments, from GridRoute or ShareRoute to the output
+    #: chain: [(scheme incl. cell col, blocks on the device, counts, n)]
     routed: Optional[List] = None
-    parts: Optional[List] = None     # CellJoin chain worklist
     #: general route: per-relation fragments on the device, indexed by
     #: relation position — [(scheme, blocks, counts, n)], updated in place by
     #: the TreeSemiJoin sweeps, released once ShareRoute has taken them.
@@ -943,14 +942,18 @@ class _WorkItem:
 
 @dataclass
 class _Chain:
-    """One stage's LocalJoin chain, over all of its machines or a contiguous
+    """One stage's output chain, over all of its machines or a contiguous
     range of them (``machine_range``, absolute): ``parts`` [(scheme incl.
     the cell column, blocks (machines, cap, w) on the device, counts
-    (machines,) on the host, valid rows)], and ``done`` [(rows, compacted
-    rows on the device or None)] of its finished ranges, in machine order."""
+    (machines,) on the host, valid rows)] in join order, and ``done``
+    [(rows, compacted rows on the device or None)] of its finished ranges,
+    in machine order.  ``tag`` keys its levels' buckets and ``group`` is
+    their retry group (a slice's adds its machine range)."""
 
     state: _StageState
     parts: List
+    tag: str
+    group: Tuple
     machine_range: Optional[Tuple[int, int]] = None
     done: List = field(default_factory=list)
 
@@ -959,7 +962,8 @@ class _Chain:
         base = self.machine_range[0] if self.machine_range else 0
         parts = [(scheme, blocks[lo:hi], cnts[lo:hi], int(cnts[lo:hi].sum()))
                  for scheme, blocks, cnts, _ in self.parts]
-        return _Chain(state=self.state, parts=parts, machine_range=(base + lo, base + hi))
+        return _Chain(state=self.state, parts=parts, tag=self.tag, group=self.group,
+                      machine_range=(base + lo, base + hi))
 
 
 class DataplaneExecutor:
@@ -987,10 +991,11 @@ class DataplaneExecutor:
                        packed keys `batched_sharded_intersect`-ed, then the
                        filtered side `batched_sharded_semijoin`-ed under the
                        same salt; keys built and fragments kept on the device
-      ShareRoute       general route: every relation `batched_sharded_grid_route`-d
-                       over the LP share grid (every attribute a dimension)
-      CellJoin         general route: the colocated-join chain on the cell
-                       column in the compiler's join order
+      ShareRoute       general route: every relation routed as GridRoute's
+                       HyperCube side over the LP share grid (every attribute
+                       a dimension); the routed blocks stay on the device
+      CellJoin         general route: the LocalJoin chain, in the compiler's
+                       join order
 
     Every call is *stage-batched*: work items with the same static signature
     and capacities form a geometry bucket whose inputs are stacked along a
@@ -1003,8 +1008,8 @@ class DataplaneExecutor:
     ``device`` — where the data plane runs (default ``cuda``; raises without
     CUDA); ``slack`` — initial capacity headroom multiplier; ``max_retries``
     — capacity-doubling attempts before giving up; ``batch_stages`` —
-    stage-batched vs per-stage scheduling; ``exact_caps`` — size GridRoute /
-    LocalJoin buffers with an exchange-free counting pass (count-then-emit)
+    stage-batched vs per-stage scheduling; ``exact_caps`` — size the cell
+    routes' and chains' buffers with an exchange-free counting pass (count-then-emit)
     instead of estimates + overflow retry; ``fault_plan`` — a
     :class:`~repro_torch.mpc.faults.FaultPlan` consulted at the dispatch,
     first-build and overflow-readback sites (None = no injection; a per-run
@@ -1761,78 +1766,93 @@ class DataplaneExecutor:
                     state.empty, state.skip_count = True, True
 
     def _lower_grid_route(self, program, states, op) -> None:
-        from ..dataplane.grid import (
-            CPBatchSig,
-            HCBatchSig,
-            _pad_table,
-            batched_sharded_grid_route,
-            batched_sharded_grid_route_count,
-            cp_batch_params,
-            hc_batch_params,
-        )
+        """The binary route's output routing, over each stage's CP grid ×
+        HyperCube (`_route_to_cells`): the light fragments to their HyperCube
+        shares, all of a stage's in one retry group, then the isolated
+        pieces to their CP cells by global id (no salts), each its own
+        group — the chain's parts in that order."""
+        from ..dataplane.grid import cp_batch_params
 
         with span("stage"):
-            # pass 1: per-fragment route parameters; pass 2 pads each group's
-            # fanout to the group max pow2 (sentinel copies are ghosted)
-            raw = []
+            frags = []
             for state in states:
                 geo = state.geo
                 if geo is None:
                     raise DataplaneUnsupported("GridRoute before BroadcastSizes")
                 if geo.cp_size * geo.hc_size >= 1 << 31:
                     raise RuntimeError(f"stage {state.skey}: virtual grid exceeds int32")
-                n_parts = (len(state.light) if state.light else 0) + len(geo.iso_order)
-                state.routed = [None] * n_parts
-                pos = 0
-                # HC side first (join order: light join, then CP cartesian
-                # factors); all light fragments of a stage share one retry group
-                for scheme, blocks, cnts, n in state.light or []:
-                    cols, shares, strides, table = hc_batch_params(geo.hc_grid, scheme, geo.cp_size)
-                    raw.append((state, "hc", pos, {
-                        "scheme": scheme, "blocks": blocks, "cnts": cnts, "cols": cols,
-                        "shares": shares, "strides": strides, "table": table, "n": n,
+                light = state.light or []
+                state.routed = [None] * (len(light) + len(geo.iso_order))
+                for pos, (scheme, blocks, cnts, n) in enumerate(light):
+                    frags.append((state, pos, {
+                        "kind": "hc", "tag": "hc", "group": ("hc", state.skey),
+                        "grid": geo.hc_grid, "cp_size": geo.cp_size,
+                        "scheme": scheme, "blocks": blocks, "cnts": cnts, "n": n,
                     }))
-                    pos += 1
-                # CP side: id-deterministic routing (no salts), per-piece retry
                 for li, x in enumerate(geo.iso_order):
                     vals, cnts = state.pieces[x]
                     dim, scale, table = cp_batch_params(geo.grid, li, geo.hc_size)
                     offsets = np.asarray([geo.offsets[(x, dev)] for dev in range(self.p)],
                                          dtype=np.int64)
-                    raw.append((state, "cp", pos, {
-                        "x": x, "vals": vals, "cnts": cnts, "offsets": offsets,
+                    frags.append((state, len(light) + li, {
+                        "kind": "cp", "tag": "cp", "group": ("cp", state.skey, x),
+                        "scheme": [x], "vals": vals, "cnts": cnts, "offsets": offsets,
                         "dim": dim, "scale": scale, "table": table, "n": state.piece_n[x],
                     }))
-                    pos += 1
+        self._route_to_cells(op, frags)
 
+    def _route_to_cells(self, op, frags) -> None:
+        """Route fragments to their virtual cells through
+        `batched_sharded_grid_route`, the routed blocks left on the device.
+
+        ``frags`` is [(state, pos, fragment)]; a fragment is a dict of its
+        ``kind`` — "hc", a relation's rows (``scheme``, ``blocks``)
+        replicated to the cells of a HyperCube ``grid`` laid over
+        ``cp_size`` CP cells that agree with their hashed coordinates, or
+        "cp", an isolated piece's values (``scheme`` [x], ``vals``) sent to
+        their cartesian cells by global id (``offsets``, ``dim``, ``scale``, ``table``) —
+        its ``tag`` (the hashes' salt input and the bucket key's), its retry
+        ``group``, ``cnts`` and ``n``.  Within a (query, kind, columns)
+        group a fanout within ``fanout_merge_ratio`` of the group's largest
+        pads to it (sentinel copies are ghosted), so the fragments share
+        buckets; with ``exact_caps`` a count pass sizes the emit.  Sets
+        ``state.routed[pos]`` to (scheme incl. the cell column, blocks on the
+        device, counts on the host, valid rows)."""
+        from ..dataplane.grid import (
+            CPBatchSig,
+            HCBatchSig,
+            _pad_table,
+            batched_sharded_grid_route,
+            batched_sharded_grid_route_count,
+            hc_batch_params,
+        )
+
+        with span("stage"):
+            for _, _, fr in frags:
+                if fr["kind"] == "hc":
+                    fr["cols"], fr["shares"], fr["strides"], fr["table"] = hc_batch_params(
+                        fr["grid"], fr["scheme"], fr["cp_size"])
             group_fanout: Dict[Tuple, int] = {}
-            for state, kind, pos, pl in raw:
-                gk = (state.qi, kind, pl.get("cols"))
-                group_fanout[gk] = max(group_fanout.get(gk, 1), len(pl["table"]))
+            for state, _, fr in frags:
+                gk = (state.qi, fr["kind"], fr.get("cols"))
+                group_fanout[gk] = max(group_fanout.get(gk, 1), len(fr["table"]))
 
             items: List[_WorkItem] = []
-            for state, kind, pos, pl in raw:
-                f_max = _pow2(group_fanout[(state.qi, kind, pl.get("cols"))])
-                own = _pow2(len(pl["table"]))
+            for state, pos, fr in frags:
+                f_max = _pow2(group_fanout[(state.qi, fr["kind"], fr.get("cols"))])
+                own = _pow2(len(fr["table"]))
                 fanout = f_max if own * self.fanout_merge_ratio >= f_max else own
-                n = pl["n"]
+                copies = fr["n"] * len(fr["table"])
                 # replicating routes are lumpier than hash exchanges: start the
                 # slot channel at double slack
-                caps = {
-                    "slot": 2 * self._slot_cap(n * len(pl["table"])),
-                    "out": self._cap(n * len(pl["table"])),
-                }
-                if kind == "hc":
-                    sig = HCBatchSig(cols=pl["cols"], fanout=fanout)
-                    key = ("hc", sig, tuple(pl["blocks"].shape))
-                    group = ("hc", state.skey)
+                caps = {"slot": 2 * self._slot_cap(copies), "out": self._cap(copies)}
+                if fr["kind"] == "hc":
+                    sig, shape = HCBatchSig(cols=fr["cols"], fanout=fanout), fr["blocks"].shape
                 else:
-                    sig = CPBatchSig(fanout=fanout)
-                    key = ("cp", sig, tuple(pl["vals"].shape))
-                    group = ("cp", state.skey, pl["x"])
+                    sig, shape = CPBatchSig(fanout=fanout), fr["vals"].shape
                 items.append(_WorkItem(
-                    state=state, key=key, caps=caps, payload={"pos": pos, "sig": sig, **pl},
-                    group=group,
+                    state=state, key=(fr["tag"], sig, tuple(shape)), caps=caps,
+                    payload={"pos": pos, "sig": sig, **fr}, group=fr["group"],
                 ))
 
         def make_dispatch(count: bool):
@@ -1848,7 +1868,7 @@ class DataplaneExecutor:
                 )
                 route = batched_sharded_grid_route_count if count else batched_sharded_grid_route
                 kw = {} if count else {"cap_slot": caps["slot"], "cap_out": caps["out"]}
-                if bucket[0].key[0] == "hc":
+                if bucket[0].payload["kind"] == "hc":
                     rows = self._stack([it.payload["blocks"] for it in bucket], s_pad)
                     nf = len(sig.cols)
                     salts = np.ones((s_pad, nf), dtype=np.uint32)
@@ -1857,7 +1877,7 @@ class DataplaneExecutor:
                     for i, it in enumerate(bucket):
                         scheme = it.payload["scheme"]
                         salts[i] = [
-                            _salt(it.state.skey, "hc", scheme[c], attempt=it.attempt)
+                            _salt(it.state.skey, it.payload["tag"], scheme[c], attempt=it.attempt)
                             for c in sig.cols
                         ]
                         shares[i] = it.payload["shares"]
@@ -1881,7 +1901,6 @@ class DataplaneExecutor:
                     )
                 if count:
                     return fn, args, partial(self._hist_post, s=s)
-                # the routed fragments stay on the device for LocalJoin
                 return fn, args, partial(self._device_rows_post, s=s)
             return dispatch
 
@@ -1897,17 +1916,13 @@ class DataplaneExecutor:
 
         for it in self._run_buckets(op.round, items, make_dispatch(count=False)):
             rows, _, cnts = it.result
-            n = int(cnts.sum())
-            if it.key[0] == "hc":
-                scheme = ["#cell"] + list(it.payload["scheme"])
-            else:
-                scheme = ["#cell", it.payload["x"]]
-            it.state.routed[it.payload["pos"]] = (scheme, rows, cnts, n)
+            it.state.routed[it.payload["pos"]] = (["#cell"] + list(it.payload["scheme"]),
+                                                  rows, cnts, int(cnts.sum()))
 
-    def _make_colocated_dispatch(self, count: bool, keep: bool = False):
-        """Bucket dispatch for one level of in-cell colocated joins; with
-        ``keep`` the emitted rows stay on the device (only counts and
-        overflow are read back)."""
+    def _make_colocated_dispatch(self, count: bool):
+        """Bucket dispatch for one level of in-cell colocated joins: the
+        count pass, or the emit, whose rows stay on the device (only counts
+        and overflow are read back)."""
         from ..dataplane.join import (
             batched_sharded_colocated_join,
             batched_sharded_colocated_join_count,
@@ -1938,44 +1953,55 @@ class DataplaneExecutor:
                 a, ac, b, bc, 0, 0, cap_out=bucket[0].caps["out"], dup_pairs=dup_pairs,
                 key_mults=km, device=self.device, invoke=False,
             )
-            post = self._device_rows_post if keep else self._rows_counts_post
-            return fn, args, partial(post, s=s)
+            return fn, args, partial(self._device_rows_post, s=s)
         return dispatch
 
     def _lower_local_join(self, program, states, op) -> None:
-        """Communication-free output: all fragments of a virtual cell live on
+        """The binary route's output: all fragments of a virtual cell live on
         machine cell % p, so the per-cell join is a chain of colocated joins
-        on the cell column — attributes shared beyond the cell folded into
-        the join key, disconnected components and CP lists combined as
-        in-cell cartesian factors.  Each chain level batches every stage still
-        joining; the chain is ordered greedily by shared attributes.
-
-        Where rows cross to the host: GridRoute leaves the routed fragments
-        on the device, and every level's rows stay there as the next level's
-        input (only each level's counts and overflow flags are read back,
-        and the packing radices' minima and maxima).  When a stage's chain
-        has one part left, its valid rows are compacted on the device into
-        the output column order, and only those rows are pulled, once per
-        stage, in the ``assemble`` span.
-
-        When a level is sliced: once its capacities are known (counted, or
-        learned), a level whose working bytes (`_level_bytes`) pass
-        `_level_budget` — half of what the device's allocator can still hand
-        out — runs over contiguous ranges of machines instead, each range
-        taking the rest of the chain (further sliced where needed) before
-        the next, in a ``slice`` span.  A machine's rows do not depend on the
-        other machines, so the rows and their order are those of the
-        unsliced chain.
-
-        Counters: ``level_rows_max``, the most valid rows one level held on
-        the device at once (a slice's, where sliced); ``pulled_rows``, the
-        rows pulled to the host."""
+        on the cell column (`_run_chains`) — attributes shared beyond the
+        cell folded into the join key, disconnected components and CP lists
+        combined as in-cell cartesian factors.  The parts are ordered once,
+        greedily by shared attributes (`_greedy_order`)."""
         chains = []
         for state in states:
             if state.routed is None:
                 raise DataplaneUnsupported("LocalJoin before GridRoute")
-            chains.append(_Chain(state=state, parts=list(state.routed)))
+            chains.append(_Chain(state=state, parts=self._greedy_order(state.routed),
+                                 tag="join", group=("join", state.skey)))
             state.routed = None             # the chain holds the fragments now
+        self._run_chains(op, chains)
+
+    @staticmethod
+    def _greedy_order(parts) -> List:
+        """The binary route's chain order: after the first part, each next
+        one the remaining part sharing the most attributes with the parts
+        before it (ties → the earliest), swapped into place.  It reads the
+        schemes alone, so every slice of a chain keeps it."""
+        parts = list(parts)
+        joined = set(parts[0][0][1:])
+        for i in range(1, len(parts)):
+            j = max(range(i, len(parts)),
+                    key=lambda j: (len(joined.intersection(parts[j][0])), -j))
+            parts[i], parts[j] = parts[j], parts[i]
+            joined.update(parts[i][0][1:])
+        return parts
+
+    def _run_chains(self, op, chains) -> None:
+        """Run the output ``chains`` (`_join_chain`) and pull each stage's
+        answer to the host.
+
+        Where rows cross to the host: the routed fragments are on the device,
+        and every level's rows stay there as the next level's input (only
+        each level's counts and overflow flags are read back, and the
+        packing radices' minima and maxima).  When a stage's chain has one
+        part left, its valid rows are compacted on the device into the
+        output column order, and only those rows are pulled, once per stage,
+        in the ``assemble`` span, and widened to int64.
+
+        Counters: ``level_rows_max``, the most valid rows one level held on
+        the device at once (a slice's, where sliced); ``pulled_rows``, the
+        rows pulled to the host."""
         count("level_rows_max", self._join_chain(op, chains))
 
         with span("assemble"):
@@ -1994,10 +2020,19 @@ class DataplaneExecutor:
                 state.rows = torch.from_numpy(rows).to(torch.int64).numpy()
 
     def _join_chain(self, op, chains) -> int:
-        """Run ``chains`` to their last level, slicing a level over its
-        machines where it would pass the budget (each slice is sized and
-        counted again on its own machines); each chain ends with its
-        compacted rows in ``done``.  → the most valid rows one level held."""
+        """Run ``chains`` to their last level, every chain still joining
+        batched into each level; a level joins each chain's first two parts
+        and leaves their rows on the device.  Each chain ends with its
+        compacted rows in ``done``.  → the most valid rows one level held.
+
+        When a level is sliced: once its capacities are known (counted, or
+        learned), a level whose working bytes (`_level_bytes`) pass
+        `_level_budget` — half of what the device's allocator can still hand
+        out — runs over contiguous ranges of machines instead, each range
+        taking the rest of the chain (further sliced where needed) before
+        the next, in a ``slice`` span.  A machine's rows do not depend on the
+        other machines, so the rows and their order are those of the
+        unsliced chain."""
         most = 0
         while True:
             active = [chain for chain in chains if len(chain.parts) >= 2]
@@ -2034,51 +2069,31 @@ class DataplaneExecutor:
         return most
 
     def _chain_item(self, chain) -> _WorkItem:
-        """The work item of a chain's next level: its first part joined with
-        the part sharing the most attributes with it (ties → the earliest)."""
-        state, parts = chain.state, chain.parts
-        a_scheme = parts[0][0]
-        n_parts = len(parts)
-        j_best = max(
-            range(1, n_parts),
-            key=lambda j: len([a for a in a_scheme[1:] if a in parts[j][0]]) * n_parts - j,
-        )
-        if j_best != 1:
-            parts[1], parts[j_best] = parts[j_best], parts[1]
-        group = ("join", state.skey)
-        if chain.machine_range is not None:
-            group += chain.machine_range
-        it = self._join_item(state, parts[0], parts[1], "join", group)
-        it.payload["chain"] = chain
-        return it
-
-    def _join_item(self, state, a_part, b_part, tag: str, group: Tuple) -> _WorkItem:
-        """The work item joining two chain parts (scheme incl. the cell
-        column, blocks, counts, valid rows) on the cell column, attributes
-        shared beyond the cell folded into the key via ``dup_pairs``; the
-        output scheme is a's followed by b's new attributes."""
-        a_scheme, a_blocks, a_cnts, n_a = a_part
-        b_scheme, b_blocks, b_cnts, n_b = b_part
+        """The work item of a chain's next level: its first two parts (scheme
+        incl. the cell column, blocks, counts, valid rows) joined on the cell
+        column, attributes shared beyond the cell folded into the key via
+        ``dup_pairs``; the output scheme is the first's followed by the
+        second's new attributes."""
+        (a_scheme, a_blocks, a_cnts, n_a), (b_scheme, b_blocks, b_cnts, n_b) = chain.parts[:2]
         common = [a for a in a_scheme[1:] if a in b_scheme]
         dup_pairs = tuple((a_scheme.index(a), b_scheme.index(a)) for a in common)
         out_scheme = a_scheme + [a for i, a in enumerate(b_scheme) if i != 0 and a not in common]
         mults = _pack_radices(a_blocks, b_blocks, dup_pairs)
         return _WorkItem(
-            state=state,
-            key=(tag, tuple(a_blocks.shape), tuple(b_blocks.shape), dup_pairs,
+            state=chain.state,
+            key=(chain.tag, tuple(a_blocks.shape), tuple(b_blocks.shape), dup_pairs,
                  mults is not None),
             caps={"out": self._cap(4 * (n_a + n_b))},
             payload={"a": (a_blocks, a_cnts), "b": (b_blocks, b_cnts), "dup_pairs": dup_pairs,
-                     "scheme": out_scheme, "mults": mults},
-            group=group,
+                     "scheme": out_scheme, "mults": mults, "chain": chain},
+            group=chain.group + (chain.machine_range or ()),
         )
 
     def _chain_level(self, op, items) -> int:
         """Run one chain level; each chain's first two parts become the
         level's rows, left on the device.  → the level's valid rows."""
         rows = 0
-        for it in self._run_buckets(op.round, items,
-                                    self._make_colocated_dispatch(count=False, keep=True)):
+        for it in self._run_buckets(op.round, items, self._make_colocated_dispatch(count=False)):
             blocks, _, cnts = it.result
             n = int(cnts.sum())
             rows += n
@@ -2395,170 +2410,46 @@ class DataplaneExecutor:
         dimension (shares from the fractional edge cover LP, Π ≤ p), every
         relation's rows are replicated to the cells agreeing with their
         hashed coordinates — share-1 attributes pin coordinate 0, attributes
-        absent from a relation fan out across that dimension.  Lowered
-        through the same ``batched_sharded_grid_route`` primitive as the
-        binary HC side, with per-attribute salts shared across relations
-        (same attribute ⇒ same hash) and one qi-scoped retry group per stage
-        so a re-salt re-routes every relation of the query together."""
-        from ..dataplane.grid import (
-            HCBatchSig,
-            _pad_table,
-            batched_sharded_grid_route,
-            batched_sharded_grid_route_count,
-            hc_batch_params,
-        )
-
+        absent from a relation fan out across that dimension.  Routed as
+        GridRoute's HyperCube side (`_route_to_cells`, one CP cell), with
+        per-attribute salts shared across relations (same attribute ⇒ same
+        hash) and one qi-scoped retry group per stage so a re-salt re-routes
+        every relation of the query together.  The routed blocks stay on the
+        device in the compiler's join order, for CellJoin."""
         with span("stage"):
             self._ensure_general_staged(states)
-            raw = []
+            frags = []
             for state in states:
                 if state.empty:
                     continue
                 gen = state.program.general
-                grid = HyperCubeGrid(
-                    list(state.program.out_cols), gen.shares_dict
-                )
+                grid = HyperCubeGrid(list(state.program.out_cols), gen.shares_dict)
                 if grid.size >= 1 << 31:
                     raise RuntimeError(f"stage {state.skey}: share grid exceeds int32")
                 state.routed = [None] * len(state.gparts)
                 for pos, ri in enumerate(gen.join_order):
                     scheme, blocks, cnts, n = state.gparts[ri]
-                    cols, shares, strides, table = hc_batch_params(grid, scheme, 1)
-                    raw.append((state, pos, {
-                        "scheme": scheme, "blocks": blocks, "cnts": cnts,
-                        "cols": cols, "shares": shares, "strides": strides,
-                        "table": table, "n": n,
+                    frags.append((state, pos, {
+                        "kind": "hc", "tag": "ghc", "group": ("ghc", state.qi),
+                        "grid": grid, "cp_size": 1,
+                        "scheme": scheme, "blocks": blocks, "cnts": cnts, "n": n,
                     }))
                 # the work items hold the fragments now: their device bytes
                 # go with this op, before CellJoin's
                 state.gparts = None
-
-            group_fanout: Dict[Tuple, int] = {}
-            for state, pos, pl in raw:
-                gk = (state.qi, pl["cols"])
-                group_fanout[gk] = max(group_fanout.get(gk, 1), len(pl["table"]))
-
-            items: List[_WorkItem] = []
-            for state, pos, pl in raw:
-                f_max = _pow2(group_fanout[(state.qi, pl["cols"])])
-                own = _pow2(len(pl["table"]))
-                fanout = f_max if own * self.fanout_merge_ratio >= f_max else own
-                n = pl["n"]
-                caps = {
-                    "slot": 2 * self._slot_cap(n * len(pl["table"])),
-                    "out": self._cap(n * len(pl["table"])),
-                }
-                sig = HCBatchSig(cols=pl["cols"], fanout=fanout)
-                items.append(_WorkItem(
-                    state=state,
-                    key=("ghc", sig, tuple(pl["blocks"].shape)),
-                    caps=caps,
-                    payload={"pos": pos, "sig": sig, **pl},
-                    group=("ghc", state.qi),
-                ))
-
-        def make_dispatch(count: bool):
-            def dispatch(bucket):
-                s, s_pad = len(bucket), self._pow2_stages(len(bucket))
-                sig = bucket[0].payload["sig"]
-                caps = bucket[0].caps
-                pad = s_pad - s
-                rows = self._stack([it.payload["blocks"] for it in bucket], s_pad)
-                cnts = self._stack([it.payload["cnts"] for it in bucket], s_pad)
-                table = np.stack(
-                    [_pad_table(it.payload["table"], sig.fanout) for it in bucket]
-                    + [np.full((sig.fanout,), -1, np.int32)] * pad
-                )
-                nf = len(sig.cols)
-                salts = np.ones((s_pad, nf), dtype=np.uint32)
-                shares = np.ones((s_pad, nf), dtype=np.uint32)
-                strides = np.zeros((s_pad, nf), dtype=np.int32)
-                for i, it in enumerate(bucket):
-                    scheme = it.payload["scheme"]
-                    salts[i] = [
-                        _salt(it.state.skey, "ghc", scheme[c], attempt=it.attempt)
-                        for c in sig.cols
-                    ]
-                    shares[i] = it.payload["shares"]
-                    strides[i] = it.payload["strides"]
-                route = (
-                    batched_sharded_grid_route_count
-                    if count else batched_sharded_grid_route
-                )
-                kw = {} if count else {
-                    "cap_slot": caps["slot"], "cap_out": caps["out"],
-                }
-                fn, args = route(
-                    rows, cnts, sig, salts=salts, shares=shares, strides=strides,
-                    table=table, device=self.device, invoke=False, **kw,
-                )
-                if count:
-                    return fn, args, partial(self._hist_post, s=s)
-                return fn, args, partial(self._rows_counts_post, s=s)
-            return dispatch
-
-        if self.exact_caps:
-            self._apply_exact_caps(
-                op.round, items, make_dispatch(count=True),
-                caps_from_count=lambda h: {
-                    "slot": _quant(max(1, int(h.max()))),
-                    "out": _quant(max(1, int(h.sum(axis=0).max()))),
-                },
-                floor={"slot": 16, "out": 16},
-            )
-
-        for it in self._run_buckets(op.round, items, make_dispatch(count=False)):
-            rows, cnts = it.result
-            n = int(cnts.sum())
-            scheme = ["#cell"] + list(it.payload["scheme"])
-            it.state.routed[it.payload["pos"]] = (scheme, rows, cnts, n)
+        self._route_to_cells(op, frags)
 
     def _lower_cell_join(self, program, states, op) -> None:
-        """Output round of the general route: a chain of communication-free
-        colocated joins on the cell column, in the compiler's fixed join
-        order (tree pre-order for acyclic, greedy connected for cyclic) —
-        no reordering, so the chain shape is a pure function of the plan.
-        Each level's work item is built by `_join_item`, as in the binary
-        LocalJoin chain."""
-        from ..dataplane.exchange import unblockify
-
+        """The general route's output: the colocated-join chain of
+        `_run_chains` over ShareRoute's routed blocks, in the compiler's
+        fixed join order (tree pre-order for acyclic, greedy connected for
+        cyclic) — no reordering, so the chain's shape is a pure function of
+        the plan."""
+        chains = []
         for state in states:
             if state.routed is None:
                 raise DataplaneUnsupported("CellJoin before ShareRoute")
-            state.parts = list(state.routed)
-
-        while True:
-            active = [state for state in states if len(state.parts) >= 2]
-            if not active:
-                break
-            with span("stage"):
-                items = [self._join_item(state, state.parts[0], state.parts[1], "gjoin",
-                                         ("gjoin", state.qi))
-                         for state in active]
-
-            if self.exact_caps:
-                self._apply_exact_caps(
-                    op.round, items, self._make_colocated_dispatch(count=True),
-                    caps_from_count=lambda c: {
-                        "out": _quant(max(1, int(c.max()))),
-                    },
-                    floor={"out": 16},
-                )
-
-            for it in self._run_buckets(
-                op.round, items, self._make_colocated_dispatch(count=False)
-            ):
-                blocks, cnts = it.result
-                n = int(cnts.sum())
-                it.state.parts[0:2] = [(it.payload["scheme"], blocks, cnts, n)]
-
-        with span("assemble"):
-            for state in states:
-                scheme, blocks, cnts, n = state.parts[0]
-                state.n_out = n
-                if not self._materialize or n == 0:
-                    continue
-                rows = unblockify(blocks, cnts)[:, 1:]     # drop the cell column
-                out_scheme = scheme[1:]
-                perm = [out_scheme.index(a) for a in state.program.out_cols]
-                state.rows = rows[:, perm]
+            chains.append(_Chain(state=state, parts=list(state.routed),
+                                 tag="gjoin", group=("gjoin", state.qi)))
+            state.routed = None             # the chain holds the fragments now
+        self._run_chains(op, chains)

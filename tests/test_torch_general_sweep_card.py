@@ -21,7 +21,8 @@ host), at p = 1 and p = 8, for an SSB-shaped star and a snowflake:
 * the base staging refuses a value past the int32 device word;
 * ShareRoute releases the fragments: no state holds them after its lowering
   and none of their tensors is alive when CellJoin starts (a star, and a
-  cyclic program, which reaches ShareRoute without a sweep).
+  cyclic program, which reaches ShareRoute without a sweep); the blocks it
+  routes stay on the executor's device for CellJoin.
 """
 
 import gc
@@ -191,7 +192,7 @@ def record(ex):
     """Wrap ``ex`` to log each sweep round's inputs and outputs, the
     fragments ShareRoute takes, and weak references to their tensors."""
     log = {"rounds": [], "share": [], "refs": [], "alive_at_cell_join": None,
-           "held_after_share": None}
+           "held_after_share": None, "routed": []}
     run_buckets, share, cell = ex._run_buckets, ex._lower_share_route, ex._lower_cell_join
     staged = ex._ensure_general_staged
 
@@ -226,6 +227,7 @@ def record(ex):
         refs(states)
         share(program, states, op)
         log["held_after_share"] = [state.gparts for state in states if state.gparts is not None]
+        log["routed"] += [blocks for state in states for _, blocks, _, _ in state.routed]
 
     def rec_cell(program, states, op):
         gc.collect()
@@ -401,6 +403,8 @@ def test_share_route_releases_the_fragments(kind):
     assert log["held_after_share"] == []
     assert len(log["refs"]) >= 2 * len(q.relations)
     assert log["alive_at_cell_join"] == 0
+    assert len(log["routed"]) == len(q.relations)
+    assert all(isinstance(b, torch.Tensor) and b.device == ex.device for b in log["routed"])
 
 
 @pytest.mark.parametrize("bad", [2**31 - 1, -2**31 - 1])

@@ -1,6 +1,7 @@
-"""The binary route's LocalJoin chain on the device, on the CPU: the 4-clique
-self-join R(A,B) S(B,C) T(A,C) U(C,D) V(A,D) W(B,D) over degree-oriented
-Graph500 graphs (the ``graph500-s15.clique4`` cell's query at test sizes).
+"""The output chain on the device, on the CPU: the binary route's LocalJoin
+over the 4-clique self-join R(A,B) S(B,C) T(A,C) U(C,D) V(A,D) W(B,D) of
+degree-oriented Graph500 graphs (the ``graph500-s15.clique4`` cell's query at
+test sizes), and the general route's CellJoin, which runs the same chain.
 
 * at p = 8 the port's answer equals the plain reference join of
   ``portbench/reference/natural_join.py`` as a multiset, on two labellings of
@@ -13,7 +14,10 @@ Graph500 graphs (the ``graph500-s15.clique4`` cell's query at test sizes).
   with each sliced level inside the budget;
 * the counters ``level_rows_max`` and ``pulled_rows`` read the largest
   level's valid rows and the answer's rows, and only the answer's rows are
-  pulled to the host.
+  pulled to the host;
+* the last two hold for CellJoin as well, on an SSB-shaped star (the
+  ``ssb-sf1.flat`` cell's join order: part, fact, customer, supplier) and on
+  a cyclic general program (the triangle over its HyperCube shares).
 """
 
 import importlib.util
@@ -39,6 +43,9 @@ from repro_torch.core.hypergraph import rho
 from repro_torch.core.planner import heavy_parameter
 from repro_torch.mpc import DataplaneExecutor, JoinSession
 from repro_torch.mpc import program as tprog
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_general_sweep_card import star  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -148,20 +155,32 @@ class Levels:
             monkeypatch.setattr(DataplaneExecutor, "_level_budget", lambda self: budget)
 
 
-def lj_counter(res, name):
+FAMILIES = {
+    # query, the op that runs its chain, chain levels, answer columns
+    "clique4": (lambda: port_query(clique4_spec(9)), "LocalJoin", 5, 4),
+    "triangle": (lambda: port_query(clique4_spec(9, family="triangle")), "LocalJoin", 2, 3),
+    "ssb-star": (lambda: tquery.query_from_arrays(star(n=2000), force_general=True),
+                 "CellJoin", 3, 7),
+    "cyclic": (lambda: tquery.general_query("triangle", n=400, dom_size=16, skew=0.5, seed=3),
+               "CellJoin", 2, 3),
+}
+
+
+def lj_counter(res, name, op="LocalJoin"):
     found = {k: v for k, v in res.counters.items() if k.endswith(":" + name)}
-    assert found and all(k.startswith("execute/op.LocalJoin") for k in found)
+    assert found and all(k.startswith(f"execute/op.{op}") for k in found)
     return sum(found.values())
 
 
-@pytest.mark.parametrize("family", ["clique4", "triangle"])
+@pytest.mark.parametrize("family", list(FAMILIES))
 def test_sliced_levels_give_the_same_bytes_within_the_budget(monkeypatch, family):
-    q = port_query(clique4_spec(9, family=family))
+    make, op, _, _ = FAMILIES[family]
+    q = make()
     levels = Levels(monkeypatch)
     base = JoinSession(p=8, device="cpu").submit(q)
     whole = max(rows for rows, _, _, _ in levels.levels)
     budget = max(need for _, _, need, _ in levels.levels) // 3
-    assert "execute/op.LocalJoin/slice" not in base.spans_us
+    assert f"execute/op.{op}/slice" not in base.spans_us
 
     levels = Levels(monkeypatch, budget)
     session = JoinSession(p=8, device="cpu")
@@ -169,34 +188,34 @@ def test_sliced_levels_give_the_same_bytes_within_the_budget(monkeypatch, family
     for res in (cold, warm):
         assert res.result.rows.tobytes() == base.result.rows.tobytes()
         assert res.count == base.count and res.per_h_counts == base.per_h_counts
-        assert "execute/op.LocalJoin/slice" in res.spans_us
+        assert f"execute/op.{op}/slice" in res.spans_us
     # every level ran within the budget, or over a single machine
     assert all(need <= budget or machines == 1 for _, _, need, machines in levels.levels)
     assert any(machines < 8 for _, _, _, machines in levels.levels)
     assert all(rows * 4 * w <= budget for rows, w, need, _ in levels.levels if need <= budget)
     # a slice holds fewer rows than the whole level did
-    assert lj_counter(warm, "level_rows_max") < whole
-    assert lj_counter(warm, "pulled_rows") == base.count
+    assert lj_counter(warm, "level_rows_max", op) < whole
+    assert lj_counter(warm, "pulled_rows", op) == base.count
 
 
-@pytest.mark.parametrize("family", ["clique4", "triangle"])
+@pytest.mark.parametrize("family", list(FAMILIES))
 def test_counters_read_the_largest_level_and_the_pulled_rows(monkeypatch, family):
-    q = port_query(clique4_spec(9, family=family))
+    make, op, n_levels, width = FAMILIES[family]
+    q = make()
     levels = Levels(monkeypatch)
     session = JoinSession(p=8, device="cpu")
     session.submit(q)
     levels.levels.clear()
     warm = session.submit(q)
-    n_levels = 5 if family == "clique4" else 2
     assert len(levels.levels) == n_levels
-    assert lj_counter(warm, "level_rows_max") == max(rows for rows, _, _, _ in levels.levels)
-    assert lj_counter(warm, "pulled_rows") == warm.count == warm.result.rows.shape[0]
-    # the last level's rows are the answer's (one η = ∅ stage: nothing is heavy)
+    assert lj_counter(warm, "level_rows_max", op) == max(rows for rows, _, _, _ in levels.levels)
+    assert lj_counter(warm, "pulled_rows", op) == warm.count == warm.result.rows.shape[0]
+    # the last level's rows are the answer's (one stage: nothing is heavy)
     assert levels.levels[-1][0] == warm.count
-    # only the answer's rows cross to the host in LocalJoin: 4 bytes a value
-    lj = {k: v for k, v in warm.counters.items() if k.startswith("execute/op.LocalJoin")}
+    # only the answer's rows cross to the host in the chain: 4 bytes a value
+    lj = {k: v for k, v in warm.counters.items() if k.startswith(f"execute/op.{op}")}
     row_bytes = sum(v for k, v in lj.items() if k.endswith(":d2h_row_bytes"))
-    assert row_bytes == warm.count * (4 if family == "clique4" else 3) * 4
+    assert row_bytes == warm.count * width * 4
     pulled = sum(v for k, v in lj.items() if k.endswith(":d2h_bytes"))
     assert row_bytes <= pulled < row_bytes + 64 * 1024
 

@@ -201,10 +201,10 @@ def test_routes_show_every_span_and_the_timings_read_them(route):
         assert sum(v for k, v in sp.items() if k.count("/") == 1
                    and k.startswith("execute/")) <= sp["execute"]
     counted = {k.rsplit("/", 1)[1] for k in warm.counters}
-    # the binary route's LocalJoin keeps its rows on the device and pulls the
-    # answer's rows once, in its assembly; the general route's rounds pull theirs
-    rows_at = "assemble" if route == "triangle" else "readback"
-    assert counted >= {"launch:h2d_bytes", "readback:d2h_bytes", f"{rows_at}:d2h_row_bytes"}
+    # both routes' output chains (LocalJoin, CellJoin) keep their rows on the
+    # device and pull the answer's rows once, in their assembly
+    assert counted >= {"launch:h2d_bytes", "readback:d2h_bytes", "assemble:d2h_row_bytes"}
+    assert "readback:d2h_row_bytes" not in counted
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
