@@ -15,6 +15,7 @@ scalable path is the MPC engine itself.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
@@ -103,6 +104,36 @@ class Relation:
 
     def rows_as_set(self) -> set:
         return set(map(tuple, self.data.tolist()))
+
+
+def table_digest(data: np.ndarray) -> bytes:
+    """Content digest of one bound table: blake2b over its dtype, its shape
+    and its C-order bytes.  Equal content gives an equal digest; any
+    differing byte, dtype or shape gives another."""
+    d = np.ascontiguousarray(data)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str(d.dtype).encode())
+    h.update(repr(d.shape).encode())
+    h.update(d.tobytes())
+    return h.digest()
+
+
+def relation_digests(query: "JoinQuery", memo: Optional[Dict] = None) -> Tuple[bytes, ...]:
+    """:func:`table_digest` of each relation's ``data``, in relation order.
+
+    A table bound several times (a self-join) is hashed once.  ``memo``
+    carries the digests across the queries of one batch, keyed by
+    ``id(data)``; it holds the array beside its digest, so no other array
+    can take that id while the entry lives.  It is sound only while the
+    tables are not written to, so it lives no longer than one batch."""
+    memo = {} if memo is None else memo
+    out = []
+    for rel in query.relations:
+        hit = memo.get(id(rel.data))
+        if hit is None:
+            hit = memo[id(rel.data)] = (rel.data, table_digest(rel.data))
+        out.append(hit[1])
+    return tuple(out)
 
 
 @dataclass(frozen=True)

@@ -29,12 +29,12 @@ import time
 from collections import OrderedDict, defaultdict
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.query import Attr, JoinQuery, Relation, reference_join
+from ..core.query import Attr, JoinQuery, Relation, reference_join, relation_digests
 from ..core.taxonomy import heavy_masks, residual_relations, sorted_rows
 from ..dataplane.exchange import to_host
 from ..device import resolve_device
@@ -1149,7 +1149,12 @@ class DataplaneExecutor:
         self._touched_caps = set()
         self._tainted_caps = set()
         with span("fingerprint"):
-            self._run_fps = tuple(self._program_fingerprint(p) for p in programs)
+            digests = config.table_digests if config is not None else None
+            if digests is None:     # a caller without the service's digests
+                memo: Dict = {}
+                digests = [relation_digests(p.query, memo) for p in programs]
+            self._run_fps = tuple(self._program_fingerprint(p, d)
+                                  for p, d in zip(programs, digests))
         states = [
             _StageState(stage=st, skey=(st.hkey, st.ekey), program=prog, qi=qi)
             for qi, prog in enumerate(programs)
@@ -1248,16 +1253,14 @@ class DataplaneExecutor:
                 self.caps_quarantined += 1
 
     @staticmethod
-    def _program_fingerprint(program) -> str:
-        """Content digest of a program's bound input tables: learned caps are
-        only guaranteed sufficient for the data they were learned on."""
+    def _program_fingerprint(program, digests: Sequence[bytes]) -> str:
+        """Content key of a program's bound input tables, from each relation's
+        scheme and :func:`~repro_torch.core.query.table_digest`: learned caps
+        are only guaranteed sufficient for the data they were learned on."""
         h = hashlib.blake2b(digest_size=8)
-        for rel in program.query.relations:
+        for rel, digest in zip(program.query.relations, digests):
             h.update(repr(tuple(rel.scheme)).encode())
-            d = np.ascontiguousarray(rel.data)
-            h.update(str(d.dtype).encode())
-            h.update(repr(d.shape).encode())
-            h.update(d.tobytes())
+            h.update(digest)
         return h.hexdigest()
 
     def _caps_key(self, round_name: str, it) -> Tuple:

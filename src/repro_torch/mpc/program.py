@@ -480,12 +480,17 @@ class RunConfig:
             learned-caps store — before any kernel is launched.  Off by
             default; compile-time verification is governed separately by
             ``compile_plan(verify=...)`` / the ``REPRO_VERIFY`` env var.
+        table_digests: one tuple per program of its relations'
+            :func:`~repro_torch.core.query.relation_digests`, taken by a
+            caller that has hashed the bound tables already (the service,
+            before its statistics).  None = the executor hashes them.
     """
 
     materialize: bool = True
     deadline: Optional[float] = None
     fault_plan: Optional[object] = None
     verify: bool = False
+    table_digests: Optional[Sequence[Tuple[bytes, ...]]] = None
 
 
 def _verify_default() -> bool:

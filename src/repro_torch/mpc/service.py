@@ -8,6 +8,10 @@ shapes over and over can reuse it.  :class:`JoinSession` keeps:
     :func:`~repro_torch.mpc.program.plan_cache_key` (query structure plus the
     full histogram signature).  A hit skips the planner LPs and the taxonomy
     sweep; the cached program is rebound onto the submitted data.
+  * **a statistics memo** — the histogram of each (λ, bound tables' content)
+    in an LRU of the same size, keyed by a digest of every bound table taken
+    once per submit (and handed on to the executor's learned-caps key), so a
+    resubmit over unchanged tables skips ``compute_stats``.
   * **one executor** — a :class:`DataplaneExecutor` living as long as the
     session, whose learned capacities make a warm repeat of a query run with
     zero overflow retries.  ``backend="simulator"`` runs each submit instead
@@ -42,9 +46,9 @@ cache provenance; :attr:`JoinSession.stats` accumulates the session-wide
 default) a plan-cache miss runs the full static verifier
 (:mod:`repro_torch.mpc.verify`) before its first kernel, and a hit re-checks
 the fresh bindings.  Each request's phases are spans
-(:mod:`repro_torch.spans`) under the request's own id: ``stats``, ``plan``
-(``compile``, ``verify``) and ``execute``, with the executor's spans below
-it.
+(:mod:`repro_torch.spans`) under the request's own id: ``stats``
+(``digest``), ``plan`` (``compile``, ``verify``) and ``execute``, with the
+executor's spans below it.
 """
 
 from __future__ import annotations
@@ -63,9 +67,9 @@ import torch
 
 from ..core.hypergraph import rho
 from ..core.planner import heavy_parameter
-from ..core.query import Attr, JoinQuery
+from ..core.query import Attr, JoinQuery, relation_digests
 from ..core.taxonomy import HeavyStats, compute_stats
-from ..spans import Trace, activate, span
+from ..spans import Trace, activate, count, span
 from ..train.fault import Heartbeat, StragglerMonitor
 from .executors import DataplaneExecutor, DataplaneJoinResult, MPCJoinResult, SimulatorExecutor
 from .faults import (
@@ -193,9 +197,10 @@ class SessionResult:
     (plan-cache miss); a hit re-checks bindings only and reports False.
 
     ``spans_us`` holds the request's inclusive µs by span path (``stats``,
-    ``plan``, ``plan/compile``, ``execute``, ``execute/op.LocalJoin/stage``,
-    ...) and ``counters`` its counts by ``<span path>:<name>``
-    (``h2d_bytes``, ``d2h_bytes``, ``d2h_row_bytes``): every span its
+    ``stats/digest``, ``plan``, ``plan/compile``, ``execute``,
+    ``execute/op.LocalJoin/stage``, ...) and ``counters`` its counts by
+    ``<span path>:<name>`` (``stats:memo_hits``, ``stats:memo_misses``,
+    ``h2d_bytes``, ``d2h_bytes``, ``d2h_row_bytes``): every span its
     execution ran, a shared coalesced execution included.
 
     Coalescing provenance: ``coalesced`` is True when the request ran inside
@@ -272,6 +277,7 @@ class _Request:
     deadline: Optional[float] = None      # absolute monotonic budget (or None)
     trace: Optional[Trace] = None         # the request's spans, from _execute_batch on
     # filled by _prepare:
+    digests: Tuple[bytes, ...] = ()       # relation_digests of the bound tables
     executor: object = None
     program: Optional[RoundProgram] = None
     plan_key: Optional[Tuple] = None
@@ -300,7 +306,8 @@ class JoinSession:
         executor: optionally inject a configured :class:`DataplaneExecutor`
             (e.g. ``batch_stages=False``); ``device`` is then ignored.
             Ignored on the simulator backend.
-        plan_cache_size: LRU bound on cached compiled programs.
+        plan_cache_size: LRU bound on cached compiled programs, and on
+            memoised statistics.
         fuse_semijoin: default fusion flag for submits that don't pass one.
         slo_target_us: per-query latency SLO counted into ``stats`` (async
             submits judged on queue-inclusive latency).
@@ -376,6 +383,7 @@ class JoinSession:
         if dev is not None and dev.type == "cuda":
             self._cuda_index = dev.index if dev.index is not None else torch.cuda.current_device()
         self._plans: "OrderedDict[Tuple, RoundProgram]" = OrderedDict()
+        self._stats_memo: "OrderedDict[Tuple, HeavyStats]" = OrderedDict()
         self.stats = ServiceStats()
         self._lock = threading.RLock()
         self._queue: "queue_mod.Queue" = queue_mod.Queue(maxsize=max_queue)
@@ -502,7 +510,7 @@ class JoinSession:
         submission dedup, same demux.  Results are in submission order and
         byte-identical to one :meth:`submit` per query.  The first failing
         member's error raises (traceback preserved)."""
-        share: Dict = {"scatter": {}, "unique": {}}
+        share: Dict = {"scatter": {}, "unique": {}, "digest": {}}
         reqs = [
             _Request(
                 query=q, lam=lam, materialize=materialize,
@@ -703,7 +711,8 @@ class JoinSession:
     # -- the shared execution path --------------------------------------------
 
     def _prepare(self, req: _Request, share: Dict) -> None:
-        """Phase 1 of a submit: histogram, plan-cache lookup, compile on miss.
+        """Phase 1 of a submit: table digests, histogram (memoised on the
+        dataplane), plan-cache lookup, compile on miss.
 
         Fills the request in place; any failure lands in ``req.error`` so one
         bad query never poisons the rest of a coalesced batch."""
@@ -723,8 +732,10 @@ class JoinSession:
                         stats = distributed_stats(sim, req.query, lam)
                 else:
                     executor = self.executor
+                    with span("digest"):
+                        req.digests = relation_digests(req.query, share["digest"])
                     if stats is None:
-                        stats = compute_stats(req.query, lam, unique_memo=share.get("unique"))
+                        stats = self._memo_stats(req, lam, share)
             req.stats_us = sp.us
 
             with span("plan"):
@@ -764,6 +775,29 @@ class JoinSession:
         except BaseException as e:
             req.error = e
 
+    def _memo_stats(self, req: _Request, lam: int, share: Dict) -> HeavyStats:
+        """``compute_stats`` through the session's statistics memo.
+
+        The statistics are a pure function of λ and each relation's scheme
+        and rows, so the key is λ and each relation's (scheme, content
+        digest, length): a resubmit over unchanged tables reuses the
+        histogram, and a table written in place misses.  The memo holds
+        digests and histograms, never the tables, LRU-bounded by
+        ``plan_cache_size``; the histograms it hands out are read-only."""
+        key = (lam, tuple((rel.scheme, d, len(rel))
+                          for rel, d in zip(req.query.relations, req.digests)))
+        stats = self._stats_memo.get(key)
+        count("memo_hits", stats is not None)
+        count("memo_misses", stats is None)
+        if stats is not None:
+            self._stats_memo.move_to_end(key)
+            return stats
+        stats = compute_stats(req.query, lam, unique_memo=share.get("unique"))
+        self._stats_memo[key] = stats
+        while len(self._stats_memo) > self.plan_cache_size:
+            self._stats_memo.popitem(last=False)
+        return stats
+
     def _execute_batch(self, reqs: List[_Request]) -> List[Union[SessionResult, BaseException]]:
         """Prepare, group, run and demux one batch of requests.
 
@@ -780,7 +814,7 @@ class JoinSession:
         with self._lock:
             t_batch = time.perf_counter()
             # per-table memos of requests without their own
-            share: Dict = {"scatter": {}, "unique": {}}
+            share: Dict = {"scatter": {}, "unique": {}, "digest": {}}
             for req in reqs:
                 req.trace = Trace(next(self._request_ids))
                 with activate(req.trace):
@@ -838,6 +872,7 @@ class JoinSession:
                                 materialize=members[0].materialize,
                                 deadline=min(deadlines) if deadlines else None,
                                 fault_plan=self.fault_plan,
+                                table_digests=tuple(r.digests for r in reps),
                             ),
                         )
                 except BaseException as e:
@@ -925,7 +960,8 @@ class JoinSession:
                     res_list, bstats = self.executor.run_many(
                         [rep.program],
                         config=RunConfig(materialize=rep.materialize, deadline=rep.deadline,
-                                         fault_plan=self.fault_plan),
+                                         fault_plan=self.fault_plan,
+                                         table_digests=(rep.digests,)),
                     )
             except BaseException as e:
                 rep_out.append(e)
@@ -993,7 +1029,7 @@ class JoinSession:
         Results are identical to one :meth:`submit` per query, in order (for
         one coalesced scheduler pass over the set, see
         :meth:`submit_coalesced`)."""
-        batch: Dict = {"scatter": {}, "unique": {}}
+        batch: Dict = {"scatter": {}, "unique": {}, "digest": {}}
         return [
             self.submit(q, lam=lam, materialize=materialize, fuse_semijoin=fuse_semijoin,
                         _batch=batch)

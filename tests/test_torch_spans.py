@@ -7,7 +7,8 @@
   ``repro_torch.request:<ids>`` event;
 * a triangle query (the binary route) and an SSB-shaped star join (the
   general route) show every span their route takes, with the service's and
-  the executor's timings read from the spans;
+  the executor's timings read from the spans, and the statistics memo's
+  counters;
 * the copy counters equal a hand count at the boundary and repeat exactly on
   a warm resubmit;
 * the removed ``phase_us`` and ``jit_cache_*`` fields are gone.
@@ -182,7 +183,8 @@ def test_profiler_events_sit_inside_their_request():
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_routes_show_every_span_and_the_timings_read_them(route):
     cold, warm, _, ops = cold_warm(route)
-    want = {"stats", "plan", "plan/verify", "execute", "execute/fingerprint", "execute/assemble"}
+    want = {"stats", "stats/digest", "plan", "plan/verify", "execute", "execute/fingerprint",
+            "execute/assemble"}
     for op, below in ops.items():
         want.add(f"execute/op.{op}")
         for name in below:
@@ -200,7 +202,10 @@ def test_routes_show_every_span_and_the_timings_read_them(route):
         # every op and every round lies inside execute
         assert sum(v for k, v in sp.items() if k.count("/") == 1
                    and k.startswith("execute/")) <= sp["execute"]
-    counted = {k.rsplit("/", 1)[1] for k in warm.counters}
+    # the statistics memo misses on the cold submit and serves the warm one
+    assert (cold.counters["stats:memo_hits"], cold.counters["stats:memo_misses"]) == (0, 1)
+    assert (warm.counters["stats:memo_hits"], warm.counters["stats:memo_misses"]) == (1, 0)
+    counted = {k.rsplit("/", 1)[-1] for k in warm.counters}
     # both routes' output chains (LocalJoin, CellJoin) keep their rows on the
     # device and pull the answer's rows once, in their assembly
     assert counted >= {"launch:h2d_bytes", "readback:d2h_bytes", "assemble:d2h_row_bytes"}
