@@ -2418,10 +2418,17 @@ class DataplaneExecutor:
         per-attribute salts shared across relations (same attribute ⇒ same
         hash) and one qi-scoped retry group per stage so a re-salt re-routes
         every relation of the query together.  The routed blocks stay on the
-        device in the compiler's join order, for CellJoin."""
+        device in the compiler's join order, for CellJoin.
+
+        Counters: ``input_rows``, the relations' rows before replication;
+        ``routed_rows``, the valid copies the route delivered; ``grid_cells``,
+        Π shares; ``live_cells``, the cells that received a row of every
+        relation, so the only ones that can emit, read off the per-machine
+        counts the route reads back (Π shares ≤ p puts each cell on a
+        machine of its own)."""
         with span("stage"):
             self._ensure_general_staged(states)
-            frags = []
+            frags, grids = [], []
             for state in states:
                 if state.empty:
                     continue
@@ -2429,6 +2436,7 @@ class DataplaneExecutor:
                 grid = HyperCubeGrid(list(state.program.out_cols), gen.shares_dict)
                 if grid.size >= 1 << 31:
                     raise RuntimeError(f"stage {state.skey}: share grid exceeds int32")
+                grids.append((state, grid.size))
                 state.routed = [None] * len(state.gparts)
                 for pos, ri in enumerate(gen.join_order):
                     scheme, blocks, cnts, n = state.gparts[ri]
@@ -2441,6 +2449,11 @@ class DataplaneExecutor:
                 # go with this op, before CellJoin's
                 state.gparts = None
         self._route_to_cells(op, frags)
+        count("input_rows", sum(fr["n"] for _, _, fr in frags))
+        for state, size in grids:
+            count("grid_cells", size)
+            count("routed_rows", sum(n for _, _, _, n in state.routed))
+            count("live_cells", np.logical_and.reduce([c > 0 for _, _, c, _ in state.routed]).sum())
 
     def _lower_cell_join(self, program, states, op) -> None:
         """The general route's output: the colocated-join chain of
