@@ -58,6 +58,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      bf16 attention at two more head dims (deepseek-moe-16b prefill,
      D = 128, and gemma3-12b prefill, D = 256) beside SDPA and the bound,
      one log line each;
+  digest: the service's table digest (``core/query.py`` ``table_digest``)
+     of a lineorder-shaped table, 6,001,215 x 4 int64: the card path's
+     digest equal to the host path's and its wall time beside the host's,
+     the page-locked host-to-card rate and the host's copy into page-locked
+     memory; the ``blake2b_chunks`` kernel alone on the resident table,
+     every chunk digest equal to ``hashlib``'s, timed beside its instruction
+     and byte bounds and its plain version; and both paths' times from 16
+     KiB to 64 MiB, the crossover behind ``CARD_DIGEST_MIN_BYTES`` (after
+     phase 2);
   patterns: subgraph enumeration through ``JoinSession(p=64).submit_pattern``:
      triangles of phase 3's graph against its oracle, the four cases of
      benchmarks/bench_subgraph.py byte-equal to the brute-force oracle and
@@ -172,7 +181,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      FLOPs, bytes and kernel units equal, 24 ``flash_attention`` / 96
      ``ssd_chunk`` launches in each counted run, the warm ms beside the H100
      bound of the count;
-  then the ``kernels`` JSON line (six rows).  Phases 3-5 give the join
+  then the ``kernels`` JSON line (seven rows).  Phases 3-5 give the join
   kernels' launch counts, on a session that does not verify (the service's
   default), the serve phase those of ``flash_attention`` and ``ssd_chunk``
   (their main path: the two serving runs), and their rows are timed at the
@@ -180,7 +189,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (``train_launches``, ``train_launches_per_step``) and the checked step's
   largest |err| (``train_max_abs_err``), the mesh phase its deepseek serving
   run's ``flash_attention`` launches (``mesh_launches``), the dryrun phase its
-  counted runs' (``dryrun_launches``); ``hash_partition``'s row is phase 7's.
+  counted runs' (``dryrun_launches``); ``hash_partition``'s row is phase 7's;
+  ``blake2b_chunks``'s is the digest phase's timing with the launches of
+  phases 3-5, whose submits digest their tables on the card.
   Patterns, service, verify, simulator and general run after phases 3-5
   (phase 6 and 7 follow, then serve, train, mesh and dryrun).
 
@@ -230,13 +241,16 @@ KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:73"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:62"),
+    # added for the service's table digest: it replaces no TPU kernel
+    "blake2b_chunks": ("src/repro_torch/kernels/csrc/digest.cu", None),
 }
 JOIN_KERNELS = ("hash_partition_pack", "merge_join_counts", "merge_join_pairs")
 # the kernels redesigned for Hopper, by source stem: phase 1 logs their
 # registers, shared memory and spills
 REDESIGNED = {"flash_attention": ["flash_fwd_tc"], "merge_join": ["mj_counts", "mj_pairs"],
               "hash_partition": ["hp_pack", "hp_partition_hist"],
-              "ssd": ["ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"]}
+              "ssd": ["ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"],
+              "digest": ["blake2b_chunks"]}
 # the kernels whose products run on the tensor cores, by source stem: phase 1
 # fails unless the SASS of each holds HMMA or HGMMA instructions
 TENSOR_CORE = {"flash_attention": ("flash_fwd_tc",),
@@ -257,6 +271,17 @@ ATTN_WIDTHS_3 = dict(batch=2, heads=16, seq=4096, head_dim=256, model="gemma3-12
 SSD_WIDTHS = dict(batch=4, heads=48, seq=4096, chunk=256, headdim=64, d_state=128)
 HASH_KEYS, HASH_PARTS = 2_000_000, 64
 HASH_KEYS_AT_SCALE = 1 << 26       # past the 50 MB L2
+# the digest phase's table: SSB SF1's lineorder, 6,001,215 rows of 4 int64
+# keys (192 MB), the largest table a benchmark submit digests
+DIGEST_ROWS = (6_001_215, 4)
+# blake2b_chunks' compute bound: ~2.7k 32-bit integer instructions per
+# 128-byte BLAKE2b block, on 64 INT32 lanes per SM × 132 SMs at the H100
+# SXM's 1.98 GHz boost clock (data sheet)
+DIGEST_INSTR_PER_BLOCK = 2700
+INT32_LANES_PER_S = 64 * 132 * 1.98e9
+# the table sizes at which the digest phase times both paths, for the
+# crossover that sets core/query.py's CARD_DIGEST_MIN_BYTES
+DIGEST_SWEEP_BYTES = tuple(1 << k for k in range(14, 27))     # 16 KiB .. 64 MiB
 
 
 def log(msg: str) -> None:
@@ -729,6 +754,100 @@ def hash_partition_pack_hazards(rng):
         ("P=4096 N=2^20 (wide)", keys(4, 1 << 20), rng.integers(0, (1 << 20) + 1, 4)
          .astype(np.int32), 4096),
     ]
+
+
+def wall_ms(torch, fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``fn`` over ``reps`` calls, each ended by a
+    synchronise, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_digest(torch, dev) -> dict:
+    """The table digest of a lineorder-shaped table (``DIGEST_ROWS``) on the
+    card and on the host: both paths' digests equal; the card path's wall
+    time beside the host path's, and beside the table's bytes over the
+    page-locked host-to-card rate measured here; the ``blake2b_chunks``
+    kernel alone on the resident table, checked against ``hashlib`` and
+    timed beside its instruction and byte bounds and its plain version; and
+    both paths' times over ``DIGEST_SWEEP_BYTES``, where the card's fixed
+    cost meets the host's hash (one log line each).  Returns the kernel's
+    row of the ``kernels`` line, its ``launches`` left for phases 3-5."""
+    from functools import partial
+
+    from repro_torch.core.query import host_chunk_digests, table_digest
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.digest import (CARD_DIGEST_MIN_BYTES, CHUNK, SLICE,
+                                            blake2b_chunks_cuda, chunk_digests,
+                                            stream_chunk_digests)
+
+    a = np.random.default_rng(33).integers(0, 2**31, DIGEST_ROWS)
+    u8 = a.reshape(-1).view(np.uint8)
+    n = u8.nbytes
+    on_card = partial(chunk_digests, device=dev)
+    if table_digest(a, on_card) != table_digest(a):
+        raise AssertionError("digest: the card path differs from the host path")
+    host_ms = wall_ms(torch, lambda: table_digest(a), reps=3)
+    card_ms = wall_ms(torch, lambda: table_digest(a, on_card))
+    # the page-locked host-to-card rate, one slice at a time (CUDA events)
+    pinned = torch.empty(SLICE, dtype=torch.uint8, pin_memory=True)
+    slice_dev = torch.empty(SLICE, dtype=torch.uint8, device=dev)
+    copy_ms = cuda_ms(torch, lambda: slice_dev.copy_(pinned, non_blocking=True))
+    rate = SLICE / copy_ms * 1e3
+    m = min(SLICE, n)
+    stage_ms = wall_ms(torch, lambda: pinned[:m].copy_(torch.from_numpy(u8[:m])))
+    del pinned, slice_dev
+    log(f"[digest] table {DIGEST_ROWS[0]:,} x {DIGEST_ROWS[1]} int64 ({n:,} B): card path "
+        f"{card_ms:.2f} ms, host path {host_ms:.2f} ms ({host_ms / card_ms:.1f}x), equal digests; "
+        f"its bytes over the page-locked host-to-card rate {rate / 1e9:.2f} GB/s (one {SLICE:,} B "
+        f"slice, CUDA events): {n / rate * 1e3:.2f} ms; the host's copy into page-locked memory "
+        f"{m / stage_ms * 1e3 / 1e9:.2f} GB/s ({n / m * stage_ms:.2f} ms for the table)")
+
+    x = torch.from_numpy(u8).to(dev)
+    got = ops.blake2b_chunks(x)
+    torch.cuda.synchronize()
+    plain_t0 = time.perf_counter()
+    want = host_chunk_digests(u8)
+    plain_ms = (time.perf_counter() - plain_t0) * 1e3
+    if got.cpu().numpy().tobytes() != want:
+        raise AssertionError("blake2b_chunks: a chunk digest differs from hashlib's")
+    reset_counts()
+    # CUDA events only: torch.profiler's device events come and go on the
+    # H100 (whole sessions of this script have read no device time)
+    med, spread = time_rounds(torch, lambda: blake2b_chunks_cuda(x, got), None, None)
+    blocks = sum(-(-min(CHUNK, n - i) // 128) for i in range(0, n, CHUNK))
+    instr_ms = blocks * DIGEST_INSTR_PER_BLOCK / INT32_LANES_PER_S * 1e3
+    bytes_ms = (n + 32 * len(got)) / HBM_BYTES_PER_S * 1e3
+    log(f"[digest] blake2b_chunks on the resident table ({len(got):,} chunks of {CHUNK} B, "
+        f"{blocks:,} blocks): kernel {med['kernel']:.4f} ms; bound {max(instr_ms, bytes_ms):.4f} "
+        f"ms (instructions {instr_ms:.4f}, bytes {bytes_ms:.4f}), "
+        f"{max(instr_ms, bytes_ms) / med['kernel']:.3f} of it; "
+        f"plain version (hashlib on the host) {plain_ms:.2f} ms; equal to hashlib; "
+        f"launches in this timing {launch_counts(['blake2b_chunks'])}; medians of 5 rounds, "
+        f"range ms: {spread}")
+    del x, got
+    torch.cuda.empty_cache()
+
+    sweep = []
+    for size in DIGEST_SWEEP_BYTES:
+        part = u8[:size]
+        sweep.append((size, wall_ms(torch, lambda: host_chunk_digests(part)),
+                      wall_ms(torch, lambda: stream_chunk_digests(part, dev))))
+    log("[digest] host / card ms by table bytes (the chunk digests alone; the constant "
+        f"CARD_DIGEST_MIN_BYTES is {CARD_DIGEST_MIN_BYTES:,}): "
+        + ", ".join(f"{s:,}: {h:.3f} / {c:.3f}" for s, h, c in sweep))
+    source, replaces = KERNELS["blake2b_chunks"]
+    return {"name": "blake2b_chunks", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": 0, "ms": med["kernel"], "plain_ms": plain_ms,
+            "bound_ms": max(instr_ms, bytes_ms),
+            "bound_by": "operations" if instr_ms > bytes_ms else "bytes", "library_ms": None}
 
 
 def phase_kernels(torch, dev) -> None:
@@ -3713,6 +3832,7 @@ def main(argv=None) -> int:
         f"{torch.backends.cudnn.allow_tf32}")
     timed("phase 2 (join kernels)", phase_kernels, torch, dev)
     timed("phase 2 (library kernels)", phase_library_kernels, torch, dev)
+    digest_row = timed("phase digest", phase_digest, torch, dev)
 
     from repro_torch.mpc import JoinSession
 
@@ -3729,7 +3849,9 @@ def main(argv=None) -> int:
     if not {"step2-unary", "step2-bx"} <= heavy["rounds"]:
         raise AssertionError(f"heavy graph ran no HashPartition/SemiJoin: {heavy['rounds']}")
     timed("phase 5", phase_parity, torch)
-    launches = launch_counts(JOIN_KERNELS)
+    # the sessions' submits digest their tables of at least
+    # CARD_DIGEST_MIN_BYTES on the card
+    launches = launch_counts(JOIN_KERNELS + ("blake2b_chunks",))
     capture.remove()
     log(f"[main] kernel launches over phases 3-5: {json.dumps(launches)}")
     for name, n in launches.items():
@@ -3750,6 +3872,7 @@ def main(argv=None) -> int:
     timed("phase 6 (general inputs)", phase_timing_general, torch, general_capture)
     del capture, general_capture
     rows += timed("phase 7", phase_library, torch, dev)
+    rows.append(dict(digest_row, launches=launches["blake2b_chunks"]))
     # the two LM kernels' rows come from the serve path, their main path
     served = timed("phase serve", phase_serve, torch, dev, env["smi"])
     rows = [served.get(row["name"], row) for row in rows]

@@ -106,20 +106,47 @@ class Relation:
         return set(map(tuple, self.data.tolist()))
 
 
-def table_digest(data: np.ndarray) -> bytes:
-    """Content digest of one bound table: blake2b over its dtype, its shape
-    and its C-order bytes.  Equal content gives an equal digest; any
-    differing byte, dtype or shape gives another."""
+#: the bytes of one leaf of the table digest
+DIGEST_CHUNK = 16 * 1024
+
+
+def host_chunk_digests(buf) -> bytes:
+    """``hashlib.blake2b(chunk, digest_size=32)`` of each ``DIGEST_CHUNK``-byte
+    chunk of the bytes ``buf`` (a 1-D uint8 array or any buffer; the last
+    chunk may be shorter, an empty buffer has none), concatenated.  Hashes
+    memoryview slices: the bytes are not copied."""
+    mv = memoryview(buf).cast("B")
+    return b"".join(hashlib.blake2b(mv[i:i + DIGEST_CHUNK], digest_size=32).digest()
+                    for i in range(0, len(mv), DIGEST_CHUNK))
+
+
+def table_digest(data: np.ndarray, chunk_digests=host_chunk_digests) -> bytes:
+    """Content digest of one bound table, a Merkle tree of BLAKE2b: its
+    C-order bytes are cut into ``DIGEST_CHUNK``-byte chunks (the last may be
+    shorter, an empty table has none), each chunk's digest is
+    ``hashlib.blake2b(chunk, digest_size=32)``, and the table's is
+    blake2b (16 bytes) over the dtype string, the shape's repr, the byte
+    length (8 bytes, little-endian) and the chunk digests in order.  Equal
+    content gives an equal digest; any differing byte, dtype or shape gives
+    another, short of a BLAKE2b collision.
+
+    ``chunk_digests`` maps the table's bytes, a 1-D uint8 array, to the
+    concatenated chunk digests: :func:`host_chunk_digests`, or a device's
+    path (``kernels.digest.chunk_digests``), which gives the same bytes."""
     d = np.ascontiguousarray(data)
+    u8 = d.reshape(-1).view(np.uint8)
     h = hashlib.blake2b(digest_size=16)
     h.update(str(d.dtype).encode())
     h.update(repr(d.shape).encode())
-    h.update(d.tobytes())
+    h.update(u8.nbytes.to_bytes(8, "little"))
+    h.update(chunk_digests(u8))
     return h.digest()
 
 
-def relation_digests(query: "JoinQuery", memo: Optional[Dict] = None) -> Tuple[bytes, ...]:
-    """:func:`table_digest` of each relation's ``data``, in relation order.
+def relation_digests(query: "JoinQuery", memo: Optional[Dict] = None,
+                     chunk_digests=host_chunk_digests) -> Tuple[bytes, ...]:
+    """:func:`table_digest` of each relation's ``data``, in relation order,
+    its chunks hashed by ``chunk_digests``.
 
     A table bound several times (a self-join) is hashed once.  ``memo``
     carries the digests across the queries of one batch, keyed by
@@ -131,7 +158,7 @@ def relation_digests(query: "JoinQuery", memo: Optional[Dict] = None) -> Tuple[b
     for rel in query.relations:
         hit = memo.get(id(rel.data))
         if hit is None:
-            hit = memo[id(rel.data)] = (rel.data, table_digest(rel.data))
+            hit = memo[id(rel.data)] = (rel.data, table_digest(rel.data, chunk_digests))
         out.append(hit[1])
     return tuple(out)
 

@@ -3,6 +3,7 @@
 # points (ops.py): the join dataplane's ops and the kernel library of
 # ``repro.kernels``.
 from .ops import (
+    blake2b_chunks,
     flash_attention,
     fold64,
     hash_partition,

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 #: the C functions each source exports: name → (argtypes, source stem)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 LAUNCHERS = {
     "hash_partition_pack_launch": (
         [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P], "hash_partition"),
@@ -42,6 +42,7 @@ LAUNCHERS = {
     "flash_attention_launch": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], "flash_attention"),
     "ssd_chunk_launch": ([_P] * 8 + [_I] * 5 + [_P], "ssd"),
+    "blake2b_chunks_launch": ([_P, _L, _I, _P, _P], "digest"),
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,9 @@
 
 The dataplane's ops take a leading segment axis; the kernel library's ops
 (``hash_partition``, ``flash_attention``, ``ssd_chunk``, ``fold64``) keep the
-layout and shape contract of the JAX package's ``repro.kernels.ops``.
+layout and shape contract of the JAX package's ``repro.kernels.ops``;
+``blake2b_chunks`` serves the join service's table digest and has no TPU
+counterpart.
 Dispatch is by the tensors' device alone: a CPU tensor runs the plain
 PyTorch version (``ref.py``), a CUDA tensor launches the hand-written kernel
 — or raises; there is no fallback from the kernel to the plain version.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..analysis.cost import kernel_unit
+from . import digest as _dg
 from . import flash_attention as _fa
 from . import hash_partition as _hp
 from . import merge_join as _mj
@@ -71,6 +74,21 @@ def hash_partition_pack(keys: torch.Tensor, counts: torch.Tensor, n_parts: int):
     return _hp.hash_partition_pack_cuda(
         keys.contiguous(), counts.to(torch.int32).contiguous(), n_parts
     )
+
+
+def blake2b_chunks(data: torch.Tensor) -> torch.Tensor:
+    """data (N,) uint8 → (ceil(N / CHUNK), 32) uint8: row i is
+    ``hashlib.blake2b(chunk_i, digest_size=32)`` of the i-th
+    ``digest.CHUNK``-byte chunk of ``data`` (the last may be shorter; empty
+    data has no chunk)."""
+    if data.dim() != 1 or data.dtype != torch.uint8:
+        raise ValueError(f"blake2b_chunks: want (N,) uint8 data, got {tuple(data.shape)} "
+                         f"{data.dtype}")
+    if _on_cpu(data):
+        return _ref.blake2b_chunks_ref(data)
+    out = torch.empty((_dg.n_chunks(data.numel()), _dg.DIGEST_BYTES), dtype=torch.uint8,
+                      device=data.device)
+    return _dg.blake2b_chunks_cuda(data.contiguous(), out)
 
 
 def fold64(keys: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.query import host_chunk_digests
+
 MIX_A = 2654435761  # Knuth multiplicative constant
 MIX_B = 0x9E3779B9
 MASK32 = 0xFFFFFFFF
@@ -195,3 +197,12 @@ def ssd_chunked_ref(x, dt, a, b_ssm, c_ssm, chunk: int):
     y = torch.cat(ys, dim=1) if ys else torch.zeros((bh, 0, p), dtype=torch.float32,
                                                     device=x.device)
     return y, state
+
+
+def blake2b_chunks_ref(data: torch.Tensor) -> torch.Tensor:
+    """data (N,) uint8 on the CPU → (ceil(N / DIGEST_CHUNK), 32) uint8: each
+    chunk's BLAKE2b-256 digest, the table digest's host path
+    (``core/query.py`` ``host_chunk_digests``)."""
+    digests = bytearray(host_chunk_digests(data.contiguous().numpy()))
+    return torch.frombuffer(digests, dtype=torch.uint8).view(-1, 32) if digests else \
+        torch.empty((0, 32), dtype=torch.uint8)

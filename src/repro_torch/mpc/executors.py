@@ -38,6 +38,7 @@ from ..core.query import Attr, JoinQuery, Relation, reference_join, relation_dig
 from ..core.taxonomy import heavy_masks, residual_relations, sorted_rows
 from ..dataplane.exchange import to_host
 from ..device import resolve_device
+from ..kernels.digest import chunk_digests
 from ..spans import count, span
 from .faults import DeadlineExceededError, RetryExhaustedError
 from .hypercube import HyperCubeGrid, route_hypercube
@@ -1152,7 +1153,8 @@ class DataplaneExecutor:
             digests = config.table_digests if config is not None else None
             if digests is None:     # a caller without the service's digests
                 memo: Dict = {}
-                digests = [relation_digests(p.query, memo) for p in programs]
+                chunks = partial(chunk_digests, device=self.device)
+                digests = [relation_digests(p.query, memo, chunks) for p in programs]
             self._run_fps = tuple(self._program_fingerprint(p, d)
                                   for p, d in zip(programs, digests))
         states = [

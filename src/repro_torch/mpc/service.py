@@ -10,8 +10,9 @@ shapes over and over can reuse it.  :class:`JoinSession` keeps:
     sweep; the cached program is rebound onto the submitted data.
   * **a statistics memo** — the histogram of each (λ, bound tables' content)
     in an LRU of the same size, keyed by a digest of every bound table taken
-    once per submit (and handed on to the executor's learned-caps key), so a
-    resubmit over unchanged tables skips ``compute_stats``.
+    once per submit (on the card for a CUDA session's large tables; handed
+    on to the executor's learned-caps key), so a resubmit over unchanged
+    tables skips ``compute_stats``.
   * **one executor** — a :class:`DataplaneExecutor` living as long as the
     session, whose learned capacities make a warm repeat of a query run with
     zero overflow retries.  ``backend="simulator"`` runs each submit instead
@@ -61,6 +62,7 @@ import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field, replace
+from functools import partial
 from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -69,6 +71,7 @@ from ..core.hypergraph import rho
 from ..core.planner import heavy_parameter
 from ..core.query import Attr, JoinQuery, relation_digests
 from ..core.taxonomy import HeavyStats, compute_stats
+from ..kernels.digest import chunk_digests
 from ..spans import Trace, activate, count, span
 from ..train.fault import Heartbeat, StragglerMonitor
 from .executors import DataplaneExecutor, DataplaneJoinResult, MPCJoinResult, SimulatorExecutor
@@ -200,8 +203,9 @@ class SessionResult:
     ``stats/digest``, ``plan``, ``plan/compile``, ``execute``,
     ``execute/op.LocalJoin/stage``, ...) and ``counters`` its counts by
     ``<span path>:<name>`` (``stats:memo_hits``, ``stats:memo_misses``,
-    ``h2d_bytes``, ``d2h_bytes``, ``d2h_row_bytes``): every span its
-    execution ran, a shared coalesced execution included.
+    ``stats/digest:card_bytes``, ``stats/digest:host_bytes``, ``h2d_bytes``,
+    ``d2h_bytes``, ``d2h_row_bytes``): every span its execution ran, a
+    shared coalesced execution included.
 
     Coalescing provenance: ``coalesced`` is True when the request ran inside
     a multi-query scheduler pass (its ``execute_us`` is then the pass's
@@ -733,7 +737,9 @@ class JoinSession:
                 else:
                     executor = self.executor
                     with span("digest"):
-                        req.digests = relation_digests(req.query, share["digest"])
+                        req.digests = relation_digests(
+                            req.query, share["digest"],
+                            partial(chunk_digests, device=executor.device))
                     if stats is None:
                         stats = self._memo_stats(req, lam, share)
             req.stats_us = sp.us

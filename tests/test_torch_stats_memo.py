@@ -168,9 +168,9 @@ def counting_digest(monkeypatch):
     calls = []
     real = query_mod.table_digest
 
-    def counted(data):
+    def counted(data, chunk_digests=query_mod.host_chunk_digests):
         calls.append(id(data))
-        return real(data)
+        return real(data, chunk_digests)
 
     monkeypatch.setattr(query_mod, "table_digest", counted)
     return calls
